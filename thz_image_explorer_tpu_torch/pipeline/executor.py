@@ -1,0 +1,263 @@
+"""Incremental per-stage pipeline executor.
+
+Port of the exact per-stage mode of
+``thz_image_explorer_tpu/pipeline/executor.py`` (reference ``main_thread``,
+``data_thread.rs:1080-1228``): an ordered stage chain over one cached
+output cube per stage (a "slot"), re-executed from the first dirty stage
+onward. Every slot stays materialized on the device; an inactive stage
+passes its input cube object through, so pass-through slots share their
+tensors instead of copying them.
+
+Contracts kept:
+
+* stages upstream of the dirty index keep their cached outputs;
+* inactive stages are identity (``data_thread.rs:1185-1188``);
+* a stage that changes the time-axis length gets a recomputed frequency
+  axis and zeroed spectra (``data_thread.rs:1194-1227``);
+* per-stage compute times (``filter_computation_time_lock``), here from
+  CUDA events read after one synchronize.
+
+The JAX package's fused/lean/click programs, compile cache and async
+probes were TPU workarounds and are not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import time as _time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from thz_image_explorer_tpu_torch.data import ScanCube, frequency_axis, resolve_device
+from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft
+from thz_image_explorer_tpu_torch.ops.intensity import (
+    intensity_image,
+    upscaled_intensity_image,
+)
+from thz_image_explorer_tpu_torch.ops.scaling import scale_cube
+from thz_image_explorer_tpu_torch.ops.windows import WindowType
+from thz_image_explorer_tpu_torch.pipeline.stage import (
+    FilterStage,
+    StageContext,
+    build_chain,
+    instantiate_filters,
+)
+
+log = logging.getLogger(__name__)
+
+
+class PipelineConfig:
+    """Processing configuration (``ConfigContainer``, ``config.rs:171-213``)."""
+
+    def __init__(self):
+        self.fft_window = [1.0, 7.0]
+        self.fft_window_type = WindowType.ADAPTED_BLACKMAN
+        self.scale_factor = 1
+        self.avg_in_fourier_space = False
+
+
+class Pipeline:
+    """Ordered stage chain with dirty-index incremental recompute on one
+    device. ``run_epoch`` changes with every chain run, so consumers can
+    cache what they derive from the slots."""
+
+    def __init__(self, device="cuda",
+                 filters: Optional[dict[str, FilterStage]] = None):
+        self.device = resolve_device(device)
+        self.filters: dict[str, FilterStage] = (
+            filters if filters is not None else instantiate_filters()
+        )
+        self.chain, self.scaling_index, self.fft_index, self.ifft_index = (
+            build_chain(self.filters)
+        )
+        self.slots: list[Optional[ScanCube]] = [None] * len(self.chain)
+        self.config = PipelineConfig()
+        self.run_epoch = 0
+        #: host copy of each slot's time axis (parameter clamping reads it
+        #: without a device->host copy per update)
+        self._host_time: dict[int, np.ndarray] = {}
+        #: chain index -> the FD weight vector that stage applied in its
+        #: last run (None: an active FD stage without ``fd_weight_vector``)
+        self._fd_weights: dict[int, Optional[torch.Tensor]] = {}
+        self._timings_ms: dict[str, float] = {}
+        self._pending_events: list = []
+        #: valid (width, height) of slot 0
+        self.valid_wh0: Optional[tuple[int, int]] = None
+
+    # ------------------------------------------------------------------
+    def index_of(self, uuid: str) -> int:
+        return self.chain.index(uuid)
+
+    @property
+    def input(self) -> Optional[ScanCube]:
+        return self.slots[0]
+
+    @property
+    def output(self) -> Optional[ScanCube]:
+        return self.slots[-1]
+
+    def raw_fd_view(self) -> Optional[ScanCube]:
+        """The slot the reference publishes its "raw" spectrum from: the
+        output of stage ``fft_index + 1`` (``data_thread.rs:1365-1380``)."""
+        return self.slots[min(self.fft_index + 1, len(self.slots) - 1)]
+
+    def valid_for(self, cube: ScanCube) -> Optional[tuple[int, int]]:
+        """Valid (width, height) of a pipeline cube: slot 0's valid region
+        divided by the cube's downscale factor."""
+        if self.valid_wh0 is None:
+            return None
+        s = cube.scaling
+        return (max(self.valid_wh0[0] // s, 1), max(self.valid_wh0[1] // s, 1))
+
+    # ------------------------------------------------------------------
+    def set_input(self, cube: ScanCube, *, reset_filters: bool = True):
+        """Load a new scan: fill slot 0, reset filters, run the chain
+        (``data_thread.rs:717-720`` + ``reset_filters`` at ``:1027-1060``)."""
+        if cube.device != self.device:
+            raise ValueError(f"cube on {cube.device}, pipeline on {self.device}")
+        self.slots = [cube] + [None] * (len(self.chain) - 1)
+        time = cube.time.cpu().numpy()
+        self._host_time = {0: time}
+        self._fd_weights = {}
+        self.valid_wh0 = tuple(cube.valid_wh)
+        if reset_filters:
+            shape = (cube.width, cube.height, cube.n_time)
+            for f in self.filters.values():
+                f.reset(time, shape)
+        self.run_from(1)
+
+    def run_from(self, start_idx: int):
+        """Re-execute ``chain[start_idx:]`` from the cached slot before it."""
+        self.run_epoch += 1
+        self._pending_events = []
+        for i in range(max(start_idx, 1), len(self.chain)):
+            name = self.chain[i]
+            inp = self.slots[i - 1]
+            if inp is None or inp.time.shape[0] == 0:
+                log.warning("input for stage %s is empty; skipping", name)
+                continue
+            timer = self._start_timer()
+            out = self._run_stage(i, name, inp)
+            if out is not inp:
+                self._stop_timer(name, timer)
+            if out.n_time != inp.n_time:
+                out = self._replan(out)
+                self._host_time[i] = out.time.cpu().numpy()
+            else:
+                self._host_time[i] = self._host_time[i - 1]
+            self.slots[i] = out
+
+    def _run_stage(self, i: int, name: str, inp: ScanCube) -> ScanCube:
+        cfg = self.config
+        if name == "scaling":
+            return scale_cube(inp, cfg.scale_factor, valid_wh=self.valid_for(inp))
+        if name == "fft":
+            return forward_fft(inp, cfg.fft_window_type, cfg.fft_window[0],
+                               cfg.fft_window[1])
+        if name == "ifft":
+            return inverse_fft(inp, cfg.avg_in_fourier_space)
+        stage = self.filters[name]
+        in_fd = self.fft_index < i < self.ifft_index
+        if not stage.active:
+            self._fd_weights.pop(i, None)
+            return inp  # identity pass-through: the slot shares the tensors
+        stage.clamp_params(inp, self._host_time[i - 1])
+        out = stage.apply(inp, StageContext(valid_wh=self.valid_for(inp)))
+        if in_fd:
+            weight = getattr(stage, "fd_weight_vector", None)
+            self._fd_weights[i] = None if weight is None else weight(inp.freq)
+        return out
+
+    @staticmethod
+    def _replan(cube: ScanCube) -> ScanCube:
+        """Frequency-axis recompute + spectra realloc after a time-length
+        change (``data_thread.rs:1194-1227``)."""
+        freq = frequency_axis(cube.time)
+        shape = (cube.width, cube.height, freq.shape[0])
+        dev = cube.device
+        return cube.replace(
+            freq=freq,
+            fft=torch.zeros(shape, dtype=torch.complex64, device=dev),
+            amplitudes=torch.zeros(shape, dtype=torch.float32, device=dev),
+            phases=torch.zeros(shape, dtype=torch.float32, device=dev),
+        )
+
+    # ------------------------------------------------------------ timings
+    def _start_timer(self):
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return _time.perf_counter()
+
+    def _stop_timer(self, name: str, start):
+        if self.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._pending_events.append((name, start, end))
+        else:
+            self._timings_ms[name] = (_time.perf_counter() - start) * 1e3
+
+    @property
+    def timings_ms(self) -> dict[str, float]:
+        """Per-stage compute time of each stage's last real run, in ms
+        (pass-throughs keep their last value). On CUDA the events of the
+        last run are read here, after one synchronize."""
+        if self._pending_events:
+            self._pending_events[-1][2].synchronize()
+            for name, start, end in self._pending_events:
+                self._timings_ms[name] = start.elapsed_time(end)
+            self._pending_events = []
+        return dict(self._timings_ms)
+
+    # ------------------------------------------------------------------
+    def spectral_source(self) -> tuple[ScanCube, torch.Tensor]:
+        """What the publish's one-pass reduction reads: the FFT stage's
+        slot (raw spectrum: post-window, before the FD stages) and the
+        product of the weight vectors the active FD stages applied.
+
+        FD stages weight amplitudes but leave phases alone, so the
+        published phases must come from the raw spectrum; that only holds
+        when every active FD stage is a per-frequency multiply. A stage
+        without ``fd_weight_vector`` breaks the contract and is refused."""
+        spec = self.slots[self.fft_index]
+        w = torch.ones(spec.n_freq, dtype=torch.float32, device=spec.device)
+        for i in range(self.fft_index + 1, self.ifft_index):
+            if i not in self._fd_weights:
+                continue
+            wi = self._fd_weights[i]
+            if wi is None:
+                raise NotImplementedError(
+                    f"active frequency-domain stage {self.chain[i]!r} has no "
+                    "fd_weight_vector: the publish reduces the raw spectrum "
+                    "and factors every FD stage out as a per-frequency weight"
+                )
+            w = w * wi
+        return spec, w
+
+    # ------------------------------------------------------------------
+    def update_filter(self, uuid: str):
+        """Incremental recompute from one filter's position
+        (``UpdateFilter``, ``data_thread.rs:907-921``)."""
+        self.run_from(self.index_of(uuid))
+
+    def update_all(self):
+        self.run_from(1)
+
+    def current_image(self) -> Optional[np.ndarray]:
+        """Intensity image of the final stage, block-upscaled to the
+        original grid when downscaled (``data_thread.rs:1242-1308``) and
+        cropped to slot 0's valid region."""
+        out = self.output
+        if out is None:
+            return None
+        if out.scaling > 1:
+            img = upscaled_intensity_image(out.data, out.scaling)
+        else:
+            img = intensity_image(out.data)
+        img = img.cpu().numpy()
+        if self.valid_wh0 is not None:
+            img = img[: self.valid_wh0[0], : self.valid_wh0[1]]
+        return img
