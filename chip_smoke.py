@@ -7,9 +7,12 @@ Builds every hand-written kernel of the port from ``thz_image_explorer_tpu_
 torch/csrc`` with nvcc, holds each against its plain PyTorch version on the
 card, then drives the main path through the ``Explorer`` facade at the
 README's reference scan size (200x200x1024): open, filter chain, ROI set,
-slider updates and pixel clicks, and finally a 512x512x1024 scan. Each
-phase prints one JSON line; the script exits non-zero as soon as a phase
-fails, and prints as its last line
+slider updates and pixel clicks; then the deconvolution Apply path on the
+same scan with a synthetic asymmetric PSF (25 bands, 500 iterations),
+followed by slider steps and clicks that must not rerun it; then the same
+commands on a small scan on the card and on the CPU; and finally a
+512x512x1024 scan. Each phase prints one JSON line; the script exits
+non-zero as soon as a phase fails, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It needs a CUDA device and the package beside it; it imports nothing of
@@ -34,8 +37,13 @@ import numpy as np
 _MEMORY_RATE = (("H200", 4.8e12), ("HBM3", 3.35e12), ("PCIe", 2.0e12), ("H100", 3.35e12))
 #: f32 peak outside the tensor cores (H100 SXM data sheet)
 _F32_PEAK = 67e12
-#: the TPU kernel this port's kernel replaces (function ``_kernel``)
+#: the TPU kernels the port's kernels replace (the Pallas kernel bodies)
 _SPECRED_REPLACES = "thz_image_explorer_tpu/ops/pallas_specred.py:124"
+_RLSEP_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:140"
+#: kernel vs plain Richardson-Lucy, per band: |kernel - plain| <= this *
+#: max|plain| (summation order, compounded over up to 500 multiplicative
+#: iterations)
+_RL_REL_TOL = 1e-3
 
 
 def emit(**obj):
@@ -69,12 +77,12 @@ def memory_rate(name: str) -> float:
     raise SystemExit(f"no memory bandwidth known for {name!r}")
 
 
-def time_ms(fn, reps=21, inner=10):
+def time_ms(fn, reps=21, inner=10, warm=3):
     """Median over ``reps`` of the mean device time of ``inner``
-    back-to-back calls, from CUDA events, after a warm-up."""
+    back-to-back calls, from CUDA events, after ``warm`` warm-up calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     samples = []
     for _ in range(reps):
@@ -164,6 +172,34 @@ def phase_kernel_checks(pulse_spec, masks5, gen):
     return main[("pulse", False)]
 
 
+# ------------------------------------------------ the Apply path's inputs
+def scan_metadata(d_mm):
+    """dotTHz metadata giving the scan a pixel pitch of ``d_mm`` (the
+    deconvolution needs dx and dy)."""
+    from thz_image_explorer_tpu_torch.io.dotthz import DotthzMetadata
+
+    return DotthzMetadata(md={"dx [mm]": str(d_mm), "dy [mm]": str(d_mm)})
+
+
+def synthetic_psf():
+    """An asymmetric PSF: widths wx = 0.70/f + 0.50 mm, wy = 0.85/f + 0.55
+    mm, centres x0 = 0.3 mm, y0 = -0.2 mm, knots over 0.1-10 THz, zero
+    width correction. A constant centre sets both ``values`` and
+    ``coeff_a``: outside the knots ``eval_const_extrap`` reads ``values``."""
+    from thz_image_explorer_tpu_torch.models.psf import PSF, CubicSplineCoeffs, HybridFit
+
+    knots = np.geomspace(0.1, 10.0, 6)
+    zeros = np.zeros_like(knots)
+
+    def const(v):
+        c = np.full_like(knots, v)
+        return CubicSplineCoeffs(knots, c, c, zeros, zeros, zeros)
+
+    return PSF(wx_fit=HybridFit(0.70, 0.50, const(0.0)),
+               wy_fit=HybridFit(0.85, 0.55, const(0.0)),
+               x0_spline=const(0.3), y0_spline=const(-0.2))
+
+
 # ---------------------------------------------------------------- phase 4
 def roi_polygons(width, height):
     """Four polygon ROIs spread over the scan (pixel coordinates)."""
@@ -245,35 +281,224 @@ def check_published(ex, width, height, n_time):
     assert ex.device.type == "cuda" and torch.cuda.is_available()
 
 
+_SMALL_SERIES = ("signal", "signal_fft", "phase_fft", "filtered_signal",
+                 "filtered_signal_fft", "filtered_phase_fft", "avg_signal",
+                 "avg_signal_fft", "avg_phase_fft")
+
+
+def compare_plots(g, gi, c, ci, tol):
+    """Every data-derived PlotData series and the image, card vs CPU.
+    ``tol(ref) -> (atol, rtol)``. Returns the largest absolute difference."""
+    worst = 0.0
+    pairs = [(key, getattr(g, key), getattr(c, key)) for key in _SMALL_SERIES]
+    for key in ("roi_signal", "roi_signal_fft", "roi_phase"):
+        pairs += [(f"{key}[{u}]", getattr(g, key)[u][1], getattr(c, key)[u][1])
+                  for u in getattr(c, key)]
+    pairs.append(("image", gi, ci))
+    for key, a, b in pairs:
+        atol, rtol = tol(b)
+        np.testing.assert_allclose(a, b, atol=atol, rtol=rtol, err_msg=key)
+        worst = max(worst, float(np.abs(a - b).max()))
+    return worst
+
+
 def small_reference_check(seed):
     """The same command sequence on a small scan on the card and on the
-    CPU (cuFFT + the kernel vs the CPU FFT + the plain reduction); every
-    published series and the image must agree."""
+    CPU (cuFFT + the kernels vs the CPU FFT + the plain versions): the
+    main path, an Apply of the deconvolution (few iterations, before the 2x
+    downscale so the scan is still >= 16x16), then the downscale. Every
+    published series and the image must agree after the Apply and at the
+    end. Returns (worst difference after the Apply, at the end)."""
+    from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable as rl
     from thz_image_explorer_tpu_torch.pipeline import Explorer
 
     t, cube = synthetic_scan(24, 20, 128, seed=seed)
-    plots = []
+    applied, final = [], []
     for device in ("cuda", "cpu"):
         ex = Explorer(device=device)
-        drive_commands(ex, lambda: ex.open_arrays(t, cube), cube, 2, 2,
+        drive_commands(ex, lambda: ex.open_arrays(t, cube, scan_metadata(1.0)), cube, 2, 2,
                        np.random.default_rng(seed))
         ex.set_avg_in_fourier_space(True)
+        ex.apply_psf(synthetic_psf())
+        for key, value in (("n_filters", 6.0), ("n_iterations", 20.0),
+                           ("start_freq", 0.25), ("end_freq", 4.0)):
+            ex.set_filter_param("deconvolution", key, value)
+        ex.set_filter_active("deconvolution", True)
+        before = rl.launches
+        ex.update_filter("deconvolution", force=True)
+        assert device == "cpu" or rl.launches > before, "the small Apply launched no RL kernel"
+        applied.append((ex.plot, ex.image))
         ex.set_downscaling(2)
-        plots.append((ex.plot, ex.image))
-    (g, gi), (c, ci) = plots
-    worst = 0.0
-    for key in ("signal", "signal_fft", "phase_fft", "filtered_signal",
-                "filtered_signal_fft", "filtered_phase_fft", "avg_signal",
-                "avg_signal_fft", "avg_phase_fft"):
-        np.testing.assert_allclose(getattr(g, key), getattr(c, key),
-                                   atol=5e-5, rtol=1e-4, err_msg=key)
-        worst = max(worst, float(np.abs(getattr(g, key) - getattr(c, key)).max()))
-    for key in ("roi_signal", "roi_signal_fft", "roi_phase"):
-        for uuid in getattr(c, key):
-            np.testing.assert_allclose(getattr(g, key)[uuid][1], getattr(c, key)[uuid][1],
-                                       atol=5e-5, rtol=1e-4, err_msg=key)
-    np.testing.assert_allclose(gi, ci, atol=5e-5, rtol=1e-4, err_msg="image")
-    return worst
+        final.append((ex.plot, ex.image))
+    (g, gi), (c, ci) = applied
+    assert not np.allclose(gi, final[0][1]), "the Apply left the image unchanged"
+    worst_apply = compare_plots(
+        g, gi, c, ci, lambda ref: (1e-3 * float(np.abs(ref).max()), 0.0))
+    (g, gi), (c, ci) = final
+    worst = compare_plots(g, gi, c, ci, lambda ref: (5e-5, 1e-4))
+    return worst_apply, worst
+
+
+# ---------------------------------------------------------------- Apply
+def drive_apply(ex, n_slider, n_clicks, rng):
+    """The Apply path as a user drives it, on an open scan: the PSF, the
+    deconvolution switched on (no rerun), Apply (the first one plans the
+    bands on the host), then slider steps and clicks (the deconvolution is
+    suppressed: no RL launch), then Apply again (the plan is cached).
+    Returns (measurements, band geometry, the deconvolution's input at the
+    first Apply)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable as rl
+
+    p = ex.pipeline
+    image_before = ex.image.copy()
+    ex.apply_psf(synthetic_psf())
+    epoch = p.run_epoch
+    ex.set_filter_active("deconvolution", True)
+    assert p.run_epoch == epoch, "switching the deconvolution on ran the chain"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex.update_filter("deconvolution", force=True)
+    torch.cuda.synchronize()
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    apply_launches = rl.launches
+    out = dict(apply_ms=apply_ms, stage_ms=p.timings_ms["deconvolution"],
+               rl_launches=apply_launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    assert apply_launches > 0, "the Apply launched no RL kernel"
+    width, height = ex.image.shape
+    assert np.isfinite(ex.image).all(), "deconvolved image not finite"
+    for key in ("filtered_signal", "avg_signal", "signal_fft", "avg_signal_fft"):
+        assert np.isfinite(getattr(ex.plot, key)).all(), f"{key} not finite"
+    assert np.abs(ex.image - image_before).max() > 1e-3 * np.abs(image_before).max(), \
+        "the Apply left the image unchanged"
+    k = p.index_of("deconvolution")
+    deconv_input = p.slots[k - 1].data
+    geometry = p.filters["deconvolution"]._plan_cache[1]
+
+    def run(cmd):
+        before = rl.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cmd()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, rl.launches - before
+
+    slider = [run(lambda i=i: ex.set_fft_window_low(1.3 + 0.05 * i)) for i in range(n_slider)]
+    clicks = [run(lambda: ex.set_selected_pixel(int(rng.integers(width)),
+                                                int(rng.integers(height))))
+              for _ in range(n_clicks)]
+    assert all(n == 0 for _ms, n in slider + clicks), (slider, clicks)
+    assert p.slots[k] is p.slots[k - 1], "a slider step kept the deconvolved result"
+    out.update(slider_ms=[m for m, _ in slider], slider_rl_launches=[n for _, n in slider],
+               click_ms=[m for m, _ in clicks], click_rl_launches=[n for _, n in clicks])
+    again_ms, again_launches = run(lambda: ex.update_filter("deconvolution", force=True))
+    assert again_launches == apply_launches, (again_launches, apply_launches)
+    assert np.isfinite(ex.image).all()
+    out.update(apply_again_ms=again_ms, apply_again_stage_ms=p.timings_ms["deconvolution"],
+               apply_again_rl_launches=again_launches)
+    return out, geometry, deconv_input
+
+
+def geometry_summary(geometry, shape):
+    n_iter = geometry.n_iter
+    return dict(bands=int(len(n_iter)), n_iter_sum=int(n_iter.sum()),
+                n_iter_max=int(n_iter.max()), pad_r_max=int(geometry.pad_r.max()),
+                pad_c_max=int(geometry.pad_c.max()),
+                fft_semantics_bands=int(geometry.use_fft_conv.sum()),
+                canvas=[shape[0] + 2 * int(geometry.pad_r.max()),
+                        shape[1] + 2 * int(geometry.pad_c.max())])
+
+
+def rl_bound_ms(geometry, shape, name):
+    """The least time for the Apply's RL work: the bytes (the padded
+    canvases read and the estimates written once, the profiles read once)
+    over the memory rate, and the band-limited operations over the f32
+    peak: per band and iteration, on the band's own padded region
+    (X + 2 pad_r) x (Y + 2 pad_c), two halves of a kr_b-tap row and a
+    kc_b-tap column correlation (2 operations per tap) plus the guard add,
+    the division and the multiply. No dense-matrix work is counted."""
+    b = len(geometry.n_iter)
+    h2 = shape[0] + 2 * int(geometry.pad_r.max())
+    w2 = shape[1] + 2 * int(geometry.pad_c.max())
+    n_bytes = 2 * b * h2 * w2 * 4 + (geometry.px.size + geometry.py.size) * 4
+    kr = 2 * geometry.pad_r.astype(np.int64) + 1
+    kc = 2 * geometry.pad_c.astype(np.int64) + 1
+    area = (shape[0] + kr - 1) * (shape[1] + kc - 1)
+    n_ops = int((geometry.n_iter.astype(np.int64) * area * (4 * kr + 4 * kc + 3)).sum())
+    bytes_ms = n_bytes / memory_rate(name) * 1e3
+    ops_ms = n_ops / _F32_PEAK * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_ops
+
+
+def check_rl(padded, px, py, n_iter, label):
+    """Kernel vs plain on the card: per band |kernel - plain| <=
+    _RL_REL_TOL * max|plain|, and two kernel runs bit-identical. Returns
+    (max abs error, max per-band relative error)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    got = rlsep.rl_bands_separable(padded, px, py, n_iter)
+    again = rlsep.rl_bands_separable(padded, px, py, n_iter)
+    ref = rlsep.rl_bands_separable_plain(padded, px, py, n_iter)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two kernel runs differ")
+    err = (got - ref).abs().amax(dim=(1, 2))
+    scale = ref.abs().amax(dim=(1, 2))
+    rel = err / torch.clamp(scale, min=1e-30)
+    if bool((err > _RL_REL_TOL * scale).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: per-band err {err.tolist()} vs max {scale.tolist()}")
+    return float(err.max()), float(rel.max())
+
+
+def ragged_rl_cases(dev, gen):
+    """RL inputs the main Apply does not give: canvases that are no
+    multiple of any tile, n_iter with zeros, B = 1, a band with kr*kc <=
+    256, a flipped band, a tall canvas, and a column reach wide enough to
+    need more than 48 KB of shared memory. Each band's image is positive
+    inside its own region and zero in a margin, as a reflect pad leaves it."""
+    import torch
+
+    def gauss(k, x0, s):
+        x = torch.arange(k, device=dev, dtype=torch.float32) - k // 2
+        return torch.exp(-(x - x0) ** 2 / (2 * s * s))
+
+    def case(h2, w2, rows, cols, n_iter, flip=()):
+        b = len(n_iter)
+        kr = max(len(r) for r in rows) | 1
+        kc = max(len(c) for c in cols) | 1
+        px = torch.zeros((b, kr), device=dev)
+        py = torch.zeros((b, kc), device=dev)
+        padded = torch.zeros((b, h2, w2), device=dev)
+        for i in range(b):
+            r, c = rows[i], cols[i]
+            if i in flip:
+                r, c = r.flip(0), c.flip(0)
+            px[i, (kr - len(r)) // 2:(kr - len(r)) // 2 + len(r)] = r
+            py[i, (kc - len(c)) // 2:(kc - len(c)) // 2 + len(c)] = c
+            mr, mc = (kr - len(r)) // 2 + 1, (kc - len(c)) // 2 + 1
+            padded[i, mr:h2 - mr, mc:w2 - mc] = 0.2 + 1.3 * torch.rand(
+                (h2 - 2 * mr, w2 - 2 * mc), device=dev, generator=gen)
+        return padded, px, py, np.asarray(n_iter, np.int64)
+
+    return {
+        "b1_37x45_5x7taps": case(37, 45, [gauss(5, 0.6, 1.0)], [gauss(7, -0.8, 1.5)], [3]),
+        "b3_61x97_flipped_zero_iter": case(
+            61, 97, [gauss(9, 1.2, 2.0), gauss(21, -2.5, 4.0), gauss(3, 0.2, 0.7)],
+            [gauss(11, -1.0, 2.5), gauss(5, 0.4, 1.0), gauss(31, 3.3, 6.0)],
+            [0, 17, 5], flip=(1,)),
+        "b5_130x70_tall": case(
+            130, 70, [gauss(k, 0.3 * k / 5, k / 4) for k in (13, 7, 25, 3, 41)],
+            [gauss(k, -0.2 * k / 5, k / 5) for k in (9, 15, 5, 21, 3)],
+            [1, 0, 40, 2, 40], flip=(2, 4)),
+        "b2_40x1100_wide_reach": case(
+            40, 1100, [gauss(5, 0.5, 1.2), gauss(9, -1.0, 2.0)],
+            [gauss(1001, 40.0, 150.0), gauss(301, -12.0, 60.0)], [2, 3], flip=(1,)),
+    }
 
 
 def main() -> int:
@@ -287,8 +512,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from thz_image_explorer_tpu_torch import kernels
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.ops import rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
     from thz_image_explorer_tpu_torch.pipeline import Explorer
+
+    # full-f32 products in the deconvolution's plain matmuls and the plain
+    # versions (the package turns TF32 off at import; cuDNN is not used)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -346,7 +578,7 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
 
     def open_scan():
-        ex.open_arrays(t, cube)
+        ex.open_arrays(t, cube, scan_metadata(0.5))
         if have_h5py:
             path = f"{tmp.name}/scan.thzimg"
             ex.save_file(path)
@@ -374,12 +606,50 @@ def main() -> int:
     main_spec = ex.pipeline.slots[ex.pipeline.fft_index].fft.reshape(n, f)
     main_masks = torch.cat([torch.ones((1, n), device=dev),
                             ex._mask_stack.reshape(-1, n)])
-    worst = small_reference_check(args.seed)
-    emit(phase="small_reference", shape=[24, 20, 128],
-         compared="cuda vs cpu port, every PlotData series + image",
-         tolerance="atol=5e-5, rtol=1e-4", max_abs_diff=worst)
 
-    # 6 (measured here, on the main path's own inputs). kernel vs plain time
+    # 5. the Apply path on the same Explorer: filters and ROIs stay active
+    sr.spectral_reduction_sums.launches = 0
+    rlsep.rl_bands_separable.launches = 0
+    apply, geometry, deconv_input = drive_apply(ex, 3, 5, np.random.default_rng(args.seed))
+    apply_launches = rlsep.rl_bands_separable.launches
+    assert apply_launches == 2 * apply["rl_launches"] > 0
+    geo = geometry_summary(geometry, (width, height))
+    emit(phase="apply", shape=[width, height, n_time], card=smi, dx_mm=0.5,
+         psf="synthetic: wx=0.70/f+0.50 mm, wy=0.85/f+0.55 mm, x0=0.3 mm, y0=-0.2 mm",
+         params="default DeconvolutionParams (25 bands, 500 iterations)",
+         specred_launches=sr.spectral_reduction_sums.launches, **apply, geometry=geo)
+
+    # 6. the RL kernel vs its plain version: the Apply's own inputs, then
+    # ragged ones
+    padded, px, py, n_iter = dec.rl_inputs(deconv_input, geometry)
+    del deconv_input
+    rl_err, rl_rel = check_rl(padded, px, py, n_iter, "apply geometry")
+    ragged = {}
+    for label, inputs in ragged_rl_cases(dev, gen).items():
+        ragged[label] = check_rl(*inputs, label)
+    emit(phase="rl_kernel_vs_plain", main_shape=list(padded.shape),
+         main_max_abs_err=rl_err, main_max_rel_err=rl_rel,
+         ragged_max_abs_err={k: v[0] for k, v in ragged.items()},
+         ragged_max_rel_err={k: v[1] for k, v in ragged.items()},
+         deterministic=True,
+         tolerance=f"per band |kernel-plain| <= {_RL_REL_TOL} * max|plain|")
+    rl_ms = time_ms(lambda: rlsep.rl_bands_separable(padded, px, py, n_iter),
+                    reps=5, inner=1, warm=1)
+    rl_plain_ms = time_ms(lambda: rlsep.rl_bands_separable_plain(padded, px, py, n_iter),
+                          reps=3, inner=1, warm=1)
+    rl_bound, rl_bound_by, rl_ops = rl_bound_ms(geometry, (width, height), name)
+    rl_shape = list(padded.shape)
+    del padded, px, py
+
+    # 7. card vs CPU on a small scan: main path, Apply, downscale
+    worst_apply, worst = small_reference_check(args.seed)
+    emit(phase="small_reference", shape=[24, 20, 128],
+         compared="cuda vs cpu port, every data-derived PlotData series + image, "
+                  "after the Apply and at the end",
+         tolerance_apply="atol = 1e-3 * max|series|", tolerance="atol=5e-5, rtol=1e-4",
+         max_abs_diff_apply=worst_apply, max_abs_diff=worst)
+
+    # 8 (measured here, on the main path's own inputs). kernel vs plain time
     kernel_ms = time_ms(lambda: sr.spectral_reduction_sums(main_spec, main_masks, False))
     plain_ms = time_ms(lambda: sr.spectral_reduction_sums_plain(main_spec, main_masks, False))
     m = int(main_masks.shape[0])
@@ -392,7 +662,7 @@ def main() -> int:
     del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks
     torch.cuda.empty_cache()
 
-    # 5. scale: the README's larger scan, 512x512x1024 (a 1 GiB cube)
+    # 9. scale: the README's larger scan, 512x512x1024 (a 1 GiB cube)
     t5, cube5 = synthetic_scan(512, 512, 1024, seed=args.seed + 1)
     torch.cuda.reset_peak_memory_stats()
     ex5 = Explorer(device="cuda")
@@ -418,7 +688,7 @@ def main() -> int:
     del ex5, cube5
     torch.cuda.empty_cache()
 
-    # 6. the kernels line
+    # 10. the kernels line
     print(json.dumps({"kernels": [{
         "name": "specred",
         "route": "cuda",
@@ -434,9 +704,26 @@ def main() -> int:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
         "shape": [n, f, m],
+    }, {
+        "name": "rlsep",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/rlsep.cu",
+        "replaces": _RLSEP_REPLACES,
+        "launches": apply_launches,
+        "max_abs_err": rl_err,
+        "max_rel_err": rl_rel,
+        "ms": rl_ms,
+        "plain_ms": rl_plain_ms,
+        "bound_ms": rl_bound,
+        "bound_by": rl_bound_by,
+        "bound_operations": rl_ops,
+        # no single PyTorch call runs the Richardson-Lucy recurrence
+        "library_ms": None,
+        "shape": rl_shape,
+        "n_iter_sum": geo["n_iter_sum"],
     }]}), flush=True)
     print(smi, flush=True)
-    # 7. the last line
+    # 11. the last line
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
     return 0

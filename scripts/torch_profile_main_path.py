@@ -5,12 +5,17 @@
 
 Opens the synthetic size x size x 1024 scan of ``chip_smoke.py`` through
 ``Explorer(device="cuda")`` with the same filters and ROIs, warms up, then
-traces 5 slider updates and 10 pixel clicks with ``torch.profiler``. Prints
-one JSON line per traced phase: wall ms per command (host clock around
-work that ends in a synchronize), device-busy ms per command (the sum of
-the kernels' and copies' own device time), the device's idle share, the
-kernels and copies launched per command, and the 12 kernels with the most
-device time. Needs a CUDA device.
+traces 5 slider updates and 10 pixel clicks with ``torch.profiler``. Then
+the Apply path of ``chip_smoke.py`` (its synthetic PSF, default 25 bands /
+500 iterations): one untraced first Apply, which plans the bands on the
+host (the script also times that host planning on its own: ``plan_bands``
+and the energy matrices), and 2 traced repeat Applies (plan cached).
+Prints one JSON line per
+traced phase: wall ms per command (host clock around work that ends in a
+synchronize), device-busy ms per command (the sum of the kernels' and
+copies' own device time), the device's idle share, the kernels and copies
+launched per command, and the 12 kernels with the most device time.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-from chip_smoke import roi_polygons, synthetic_scan  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    roi_polygons,
+    scan_metadata,
+    synthetic_psf,
+    synthetic_scan,
+)
 
 
 def traced(label, commands, card):
@@ -82,7 +92,7 @@ def main() -> int:
     kernels.build()
     t, cube = synthetic_scan(args.size, args.size, 1024, seed=args.seed)
     ex = Explorer(device="cuda")
-    ex.open_arrays(t, cube)
+    ex.open_arrays(t, cube, scan_metadata(0.5))
     for uuid in ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_notch"):
         ex.set_filter_active(uuid, True)
     for i, poly in enumerate(roi_polygons(args.size, args.size)):
@@ -102,6 +112,30 @@ def main() -> int:
         for _ in range(10)
     ], card)
     print(json.dumps({"stage_ms_last_run": ex.pipeline.timings_ms, "card": card}))
+
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+
+    psf = synthetic_psf()
+    params = ex.pipeline.filters["deconvolution"].params
+    t0 = time.perf_counter()
+    geometry = dec.plan_bands(params, psf, t, (args.size, args.size), 0.5, 0.5)
+    t1 = time.perf_counter()
+    n_taps = geometry.taps.shape[1]
+    dec._energy_matrices(geometry.taps, dec._conv_len(1024 + n_taps - 1), 1024)
+    t2 = time.perf_counter()
+    print(json.dumps({"host_plan_bands_ms": (t1 - t0) * 1e3,
+                      "host_energy_matrices_ms": (t2 - t1) * 1e3, "card": card}), flush=True)
+    ex.apply_psf(psf)
+    ex.set_filter_active("deconvolution", True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.update_filter("deconvolution", force=True)
+    torch.cuda.synchronize()
+    print(json.dumps({"first_apply_wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "card": card}), flush=True)
+    traced("apply_again", [
+        (lambda: ex.update_filter("deconvolution", force=True)) for _ in range(2)
+    ], card)
     return 0
 
 

@@ -161,9 +161,9 @@ def test_pass_through_slots_share_tensors(scan_path):
     chain = p.chain
     assert chain == ["initial", "scaling", "time_band_pass_before_fft", "fft",
                      "frequency_band_pass", "water_vapor_notch", "ifft",
-                     "time_band_pass_after_fft"]
+                     "time_band_pass_after_fft", "deconvolution"]
     # scale 1 and every filter inactive: identity stages pass the object on
-    for i in (1, 2, 4, 5, 7):
+    for i in (1, 2, 4, 5, 7, 8):
         assert p.slots[i] is p.slots[i - 1], chain[i]
     assert p.slots[6].fft is p.slots[3].fft  # the iFFT keeps the spectrum
 

@@ -5,14 +5,20 @@ reference the port is tested against). Layout mirrors it module by module:
 
 ``data``      the :class:`~thz_image_explorer_tpu_torch.data.ScanCube`
               dataclass of tensors, frequency axis, load preprocessing
-``io``        dotTHz (HDF5) reader/writer and the in-memory open
+``io``        dotTHz (HDF5) reader/writer, the in-memory open, and the
+              PSF ``.npz`` codec
+``models``    the frequency-resolved PSF model (splines + hybrid fits)
 ``ops``       windows, band-passes, FFT/unwrap, scaling, intensity,
-              ROI masks, optical properties, and the one-pass spectral
-              reduction (``ops/specred.py`` + ``csrc/specred.cu``)
+              ROI masks, optical properties, the one-pass spectral
+              reduction (``ops/specred.py`` + ``csrc/specred.cu``), the
+              FIR bank and the frequency-resolved Richardson-Lucy
+              deconvolution (``ops/deconvolution.py``, its kernel
+              ``ops/rlsep.py`` + ``csrc/rlsep.cu``)
 ``pipeline``  stage protocol, filters, the per-stage executor, publish
               and the :class:`~thz_image_explorer_tpu_torch.pipeline.
               explorer.Explorer` command facade
-``convert``   JAX-state (numpy leaves) -> port tensors, for the tests
+``convert``   JAX-side state (numpy leaves, PSF arrays, filter
+              parameters) -> the port's, for the tests
 
 Devices are explicit: every entry point takes a ``device`` and defaults to
 ``"cuda"``; nothing falls back to the CPU on its own.

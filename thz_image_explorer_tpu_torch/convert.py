@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from thz_image_explorer_tpu_torch.data import ScanCube
+from thz_image_explorer_tpu_torch.io.psf_npz import psf_from_arrays
 from thz_image_explorer_tpu_torch.pipeline.stage import FilterStage, instantiate_filters
 
 _TENSOR_FIELDS = (
@@ -42,20 +43,28 @@ def cube_from_numpy(leaves: dict[str, np.ndarray], *, dx: Optional[float],
     )
 
 
+#: the port's PSF from a JAX PSF's arrays as numpy, keyed as in the
+#: 28-array ``.npz`` schema (``wx_base_a``, ``wx_knots_thz``, ...,
+#: ``y0_coeff_d``; ``io/psf_npz.py``)
+psf_from_numpy = psf_from_arrays
+
+
 def filter_params_from_numpy(params: dict[str, dict]) -> dict[str, FilterStage]:
     """Fresh port filter instances, uuid-keyed, with the given parameters
     copied on: ``{uuid: {attribute: value}}`` (numpy scalars become Python
-    numbers; ``active`` is a parameter like any other). Unknown uuids or
-    attributes raise, so a renamed parameter cannot be dropped silently."""
+    numbers; ``active`` is a parameter like any other). Each key goes where
+    ``FilterStage.param_owner`` says. Unknown uuids or keys raise, so a
+    renamed parameter cannot be dropped silently."""
     filters = instantiate_filters()
     for uuid, values in params.items():
         stage = filters[uuid]
         for key, value in values.items():
-            if not hasattr(stage, key):
+            target = stage.param_owner(key)
+            if target is None:
                 raise AttributeError(f"{uuid} has no parameter {key!r}")
             if isinstance(value, np.generic) or (
                 isinstance(value, np.ndarray) and value.ndim == 0
             ):
                 value = value.item()
-            setattr(stage, key, value)
+            setattr(target, key, value)
     return filters

@@ -1,1 +1,2 @@
-"""Host I/O: dotTHz (HDF5) files and the in-memory scan open."""
+"""Host I/O: dotTHz (HDF5) files, the in-memory scan open, and the PSF
+``.npz`` codec."""

@@ -15,7 +15,12 @@ Contracts kept:
 * a stage that changes the time-axis length gets a recomputed frequency
   axis and zeroed spectra (``data_thread.rs:1194-1227``);
 * per-stage compute times (``filter_computation_time_lock``), here from
-  CUDA events read after one synchronize.
+  CUDA events read after one synchronize;
+* the deconvolution-rerun suppression (``data_thread.rs:1139-1150``): a
+  run requested from index ``k`` re-runs the deconvolution only when no
+  other filter stage, active or not, lies at or after ``k``, unless the
+  run is forced (Apply, Calculate All). A suppressed deconvolution passes
+  its input through and keeps its last ms.
 
 The JAX package's fused/lean/click programs, compile cache and async
 probes were TPU workarounds and are not ported.
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import logging
 import time as _time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -85,6 +90,13 @@ class Pipeline:
         self._pending_events: list = []
         #: valid (width, height) of slot 0
         self.valid_wh0: Optional[tuple[int, int]] = None
+        #: the PSF model the deconvolution uses (``models.psf.PSF``), set
+        #: by ``Explorer.open_psf`` / ``apply_psf``
+        self.psf = None
+        #: polled by long stages (the deconvolution) between groups of work
+        self.cancelled: Callable[[], bool] = lambda: False
+        #: uuid -> progress of the stage's running apply (None when idle)
+        self.progress: dict[str, Optional[float]] = {uuid: None for uuid in self.filters}
 
     # ------------------------------------------------------------------
     def index_of(self, uuid: str) -> int:
@@ -128,18 +140,26 @@ class Pipeline:
                 f.reset(time, shape)
         self.run_from(1)
 
-    def run_from(self, start_idx: int):
-        """Re-execute ``chain[start_idx:]`` from the cached slot before it."""
+    def run_from(self, start_idx: int, force_all: bool = False):
+        """Re-execute ``chain[start_idx:]`` from the cached slot before it.
+        ``force_all`` lifts the deconvolution-rerun suppression (Apply,
+        Calculate All). The rule is keyed on the requested start: any
+        other filter stage in the range, active or not, suppresses the
+        deconvolution (``data_thread.rs:1139-1149``)."""
         self.run_epoch += 1
         self._pending_events = []
+        run_deconvolution = True
         for i in range(max(start_idx, 1), len(self.chain)):
             name = self.chain[i]
             inp = self.slots[i - 1]
             if inp is None or inp.time.shape[0] == 0:
                 log.warning("input for stage %s is empty; skipping", name)
                 continue
+            stage = self.filters.get(name)
+            if stage is not None and not stage.is_deconvolution:
+                run_deconvolution = False
             timer = self._start_timer()
-            out = self._run_stage(i, name, inp)
+            out = self._run_stage(i, name, inp, run_deconvolution or force_all)
             if out is not inp:
                 self._stop_timer(name, timer)
             if out.n_time != inp.n_time:
@@ -149,7 +169,8 @@ class Pipeline:
                 self._host_time[i] = self._host_time[i - 1]
             self.slots[i] = out
 
-    def _run_stage(self, i: int, name: str, inp: ScanCube) -> ScanCube:
+    def _run_stage(self, i: int, name: str, inp: ScanCube,
+                   run_deconvolution: bool) -> ScanCube:
         cfg = self.config
         if name == "scaling":
             return scale_cube(inp, cfg.scale_factor, valid_wh=self.valid_for(inp))
@@ -160,15 +181,24 @@ class Pipeline:
             return inverse_fft(inp, cfg.avg_in_fourier_space)
         stage = self.filters[name]
         in_fd = self.fft_index < i < self.ifft_index
-        if not stage.active:
+        if not stage.active or (stage.is_deconvolution and not run_deconvolution):
             self._fd_weights.pop(i, None)
             return inp  # identity pass-through: the slot shares the tensors
         stage.clamp_params(inp, self._host_time[i - 1])
-        out = stage.apply(inp, StageContext(valid_wh=self.valid_for(inp)))
+        out = stage.apply(inp, StageContext(
+            progress=self._progress_setter(name), cancelled=self.cancelled,
+            psf=self.psf, valid_wh=self.valid_for(inp),
+        ))
         if in_fd:
             weight = getattr(stage, "fd_weight_vector", None)
             self._fd_weights[i] = None if weight is None else weight(inp.freq)
         return out
+
+    def _progress_setter(self, uuid: str) -> Callable[[Optional[float]], None]:
+        def setter(value: Optional[float]):
+            self.progress[uuid] = value
+
+        return setter
 
     @staticmethod
     def _replan(cube: ScanCube) -> ScanCube:
@@ -238,13 +268,15 @@ class Pipeline:
         return spec, w
 
     # ------------------------------------------------------------------
-    def update_filter(self, uuid: str):
+    def update_filter(self, uuid: str, force: bool = False):
         """Incremental recompute from one filter's position
-        (``UpdateFilter``, ``data_thread.rs:907-921``)."""
-        self.run_from(self.index_of(uuid))
+        (``UpdateFilter``, ``data_thread.rs:907-921``); ``force`` is the
+        Apply button's path."""
+        self.run_from(self.index_of(uuid), force_all=force)
 
     def update_all(self):
-        self.run_from(1)
+        """Calculate All: the whole chain, the deconvolution included."""
+        self.run_from(1, force_all=True)
 
     def current_image(self) -> Optional[np.ndarray]:
         """Intensity image of the final stage, block-upscaled to the

@@ -22,6 +22,7 @@ import torch
 
 from thz_image_explorer_tpu_torch.data import resolve_device
 from thz_image_explorer_tpu_torch.io import dotthz as thzio
+from thz_image_explorer_tpu_torch.io.psf_npz import load_psf
 from thz_image_explorer_tpu_torch.ops.roi import polygon_mask
 from thz_image_explorer_tpu_torch.ops.windows import WindowType
 from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
@@ -180,6 +181,15 @@ class Explorer:
         md.set_rois(self.rois)
         thzio.save_scan(path, inp, md)
 
+    def open_psf(self, path: str):
+        """OpenPSF (``data_thread.rs:797-812``): load a PSF ``.npz`` for the
+        deconvolution. Takes effect at the next Apply."""
+        self.pipeline.psf = load_psf(path)
+
+    def apply_psf(self, psf):
+        """ApplyPSF from the PSF tool (``data_thread.rs:787-796``)."""
+        self.pipeline.psf = psf
+
     # ------------------------------------------------------- fft config
     def set_fft_window_low(self, low: float):
         self.pipeline.config.fft_window[0] = low
@@ -211,34 +221,42 @@ class Explorer:
         self.publish()
 
     # ------------------------------------------------------- filters
-    def update_filter(self, uuid: str):
-        self.pipeline.update_filter(uuid)
+    def update_filter(self, uuid: str, force: bool = False):
+        """UpdateFilter from one filter's position; ``force=True`` is the
+        deconvolution's Apply button (the rerun-suppression rule does not
+        hold it back)."""
+        self.pipeline.update_filter(uuid, force=force)
         self.publish()
 
     def update_filters(self):
+        """Calculate All: the whole chain, the deconvolution included."""
         self.pipeline.update_all()
         self.publish()
 
     def set_filter_param(self, uuid: str, key: str, value):
-        """Set one filter parameter, coerced to the type of its current
-        value (the UI sends every number as a float). Takes effect at the
+        """Set one filter parameter where ``FilterStage.param_owner`` puts
+        it (an unknown key is ignored), coerced to the type of the current
+        value (the UI sends every number as a float, and integer fields
+        such as ``n_filters`` must stay integers). Takes effect at the
         next ``update_filter``."""
-        f = self.pipeline.filters[uuid]
-        if not hasattr(f, key):
+        target = self.pipeline.filters[uuid].param_owner(key)
+        if target is None:
             return
-        cur = getattr(f, key)
+        cur = getattr(target, key)
         if isinstance(cur, bool):
             value = bool(value)
         elif isinstance(cur, (int, float)):
             value = type(cur)(value)
-        setattr(f, key, value)
+        setattr(target, key, value)
 
     def set_filter_active(self, uuid: str, active: bool):
-        """Toggle a filter; a change re-runs the chain from it."""
+        """Toggle a filter; a change re-runs the chain from it. Switching
+        the deconvolution on does not: it waits for Apply, while switching
+        it off re-runs to remove its effect (``filters/filter.rs:590-605``)."""
         stage = self.pipeline.filters[uuid]
         changed = stage.active != active
         stage.active = active
-        if changed:
+        if changed and (not stage.is_deconvolution or not active):
             self.update_filter(uuid)
 
     # ------------------------------------------------------- selection

@@ -2,12 +2,15 @@
 
 Port of ``thz_image_explorer_tpu/pipeline/filters.py``: the time-domain
 band-passes before the FFT and after the iFFT, the frequency-domain
-band-pass and the water-vapor notch, with the same uuids, parameters and
-defaults (the reference's ``src/filters/``). Tilt compensation
-and deconvolution are not ported yet.
+band-pass, the water-vapor notch and the deconvolution, with the same
+uuids, parameters and defaults (the reference's ``src/filters/``). Tilt
+compensation is not ported yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -15,6 +18,7 @@ import torch
 from thz_image_explorer_tpu_torch.assets.water_lines import WATER_LINES_THZ
 from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.ops import bandpass as bp
+from thz_image_explorer_tpu_torch.ops import deconvolution as dec
 from thz_image_explorer_tpu_torch.pipeline.stage import (
     FilterConfig,
     FilterDomain,
@@ -22,6 +26,8 @@ from thz_image_explorer_tpu_torch.pipeline.stage import (
     StageContext,
     register_filter,
 )
+
+log = logging.getLogger(__name__)
 
 
 class _TimeBandPass(FilterStage):
@@ -146,3 +152,69 @@ class WaterVaporNotch(FilterStage):
 
     def _lines_on(self, freq: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self._lines, device=freq.device)
+
+
+@register_filter
+class Deconvolution(FilterStage):
+    """Frequency-resolved Richardson-Lucy deconvolution
+    (``deconvolution.rs``; IEEE TTHZ.2025.3546756). Switching it on does not
+    run it: only an explicit Apply does (``deconvolution.rs:1113-1116``),
+    and the executor applies the rerun-suppression rule.
+
+    The port never pads the pixel grid, so the stage deconvolves the whole
+    cube; the JAX stage's crop to the valid region and re-insert
+    (``_crop2`` / ``_insert2``) have no counterpart here."""
+
+    is_deconvolution = True
+
+    def __init__(self):
+        self.params = dec.DeconvolutionParams()
+        self.active = False
+        #: (plan key, geometry) of the last plan
+        self._plan_cache = None
+
+    def config(self) -> FilterConfig:
+        return FilterConfig(
+            name="Deconvolution",
+            description=(
+                "Frequency-dependent deconvolution for enhanced THz-TDS "
+                "scans, accounting for beam width variations in time traces."
+            ),
+            domain=FilterDomain.TIME_AFTER_FFT_PRIO_LAST,
+            hyperlink=("TTHZ.2025.3546756", "https://doi.org/10.1109/TTHZ.2025.3546756"),
+        )
+
+    def apply(self, cube: ScanCube, context: StageContext) -> ScanCube:
+        context.progress(0.0)
+        try:
+            if cube.dx is None or cube.dy is None:
+                log.error("No spatial resolution (dx/dy); skipping deconvolution.")
+                return cube
+            psf = context.psf
+            if psf is None or not psf.is_loaded:
+                log.error("No PSF loaded; skipping deconvolution.")
+                return cube
+            time = cube.time.cpu().numpy()
+            # keyed on the PSF's content, not its id(): a new PSF allocated
+            # at a freed one's address must not hit a stale plan
+            key = (
+                dataclasses.astuple(self.params), psf.fingerprint(), time.shape,
+                float(time[0]), float(time[-1]), (cube.width, cube.height),
+                cube.dx, cube.dy,
+            )
+            if self._plan_cache is None or self._plan_cache[0] != key:
+                self._plan_cache = (key, dec.plan_bands(
+                    self.params, psf, time, (cube.width, cube.height), cube.dx, cube.dy,
+                ))
+            geometry = self._plan_cache[1]
+            if geometry is None:
+                log.warning("Deconvolution preconditions not met; skipping.")
+                return cube
+            out = dec.deconvolve_cube(
+                cube.data, geometry, progress=context.progress, cancelled=context.cancelled,
+            )
+            if out is None:  # cancelled
+                return cube
+            return cube.replace(data=out)
+        finally:
+            context.progress(None)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -53,6 +53,11 @@ class FilterStage:
     #: stable identifier used in the chain and the command API
     uuid: str = ""
     active: bool = True
+    #: marks the deconvolution stage: it runs only on an explicit Apply and
+    #: is subject to the executor's rerun-suppression rule
+    #: (``data_thread.rs:1139-1150``). A class attribute, not a name match,
+    #: so an extension named "Deconvolution ..." stays a normal filter.
+    is_deconvolution: bool = False
 
     def config(self) -> FilterConfig:
         raise NotImplementedError
@@ -69,6 +74,15 @@ class FilterStage:
     def apply(self, cube: ScanCube, context: "StageContext") -> ScanCube:
         raise NotImplementedError
 
+    def param_owner(self, key: str) -> Optional[object]:
+        """The object that holds parameter ``key``: the stage's ``params``
+        dataclass when it has that field (the deconvolution's), else the
+        stage when it has the attribute, else None."""
+        params = getattr(self, "params", None)
+        if params is not None and hasattr(params, key):
+            return params
+        return self if hasattr(self, key) else None
+
     @property
     def name(self) -> str:
         return self.config().name
@@ -80,10 +94,14 @@ class FilterStage:
 
 @dataclasses.dataclass
 class StageContext:
-    """Per-run information handed to stages: the valid (width, height) of
-    the stage's input. (The JAX package's progress and cancellation hooks
-    serve the deconvolution, which is not ported yet.)"""
+    """Per-run services handed to stages: progress reporting (a fraction,
+    None when done), cooperative cancellation, the PSF the deconvolution
+    uses (the reference routes it through ``gui_settings.psf``), and the
+    valid (width, height) of the stage's input."""
 
+    progress: Callable[[Optional[float]], None] = lambda _f: None
+    cancelled: Callable[[], bool] = lambda: False
+    psf: Optional[object] = None
     valid_wh: Optional[tuple[int, int]] = None
 
 
