@@ -7,11 +7,15 @@ Builds every hand-written kernel of the port from ``thz_image_explorer_tpu_
 torch/csrc`` with nvcc, holds each against its plain PyTorch version on the
 card, then drives the main path through the ``Explorer`` facade at the
 README's reference scan size (200x200x1024): open, filter chain, ROI set,
-slider updates and pixel clicks; then the deconvolution Apply path on the
-same scan with a synthetic asymmetric PSF (25 bands, 500 iterations),
-followed by slider steps and clicks that must not rerun it; then the same
-commands on a small scan on the card and on the CPU; and finally a
-512x512x1024 scan. Each phase prints one JSON line; the script exits
+slider updates and pixel clicks; then the 3-D voxel view of that scan as
+the web view serves it (the live top-k view and one dense extraction); then
+the deconvolution Apply path on the same scan with a synthetic asymmetric
+PSF (25 bands, 500 iterations), followed by slider steps and clicks that
+must not rerun it and a 3-D view of the deconvolved scan; the general 2-D
+and the grouped Richardson-Lucy kernels on the Apply's own inputs; then the
+same commands, the 3-D view and SaveVTU on a small scan on the card and on
+the CPU; and finally a 512x512x1024 scan with one live 3-D view. Each phase
+prints one JSON line; the script exits
 non-zero as soon as a phase fails, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -40,6 +44,9 @@ _F32_PEAK = 67e12
 #: the TPU kernels the port's kernels replace (the Pallas kernel bodies)
 _SPECRED_REPLACES = "thz_image_explorer_tpu/ops/pallas_specred.py:124"
 _RLSEP_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:140"
+_ENVELOPE_REPLACES = "thz_image_explorer_tpu/ops/voxel.py:213"
+_RL2D_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:61"
+_RLSEP_GROUPED_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:157"
 #: kernel vs plain Richardson-Lucy, per band: |kernel - plain| <= this *
 #: max|plain| (summation order, compounded over up to 500 multiplicative
 #: iterations)
@@ -302,22 +309,37 @@ def compare_plots(g, gi, c, ci, tol):
     return worst
 
 
-def small_reference_check(seed):
+def small_reference_check(seed, tmp):
     """The same command sequence on a small scan on the card and on the
     CPU (cuFFT + the kernels vs the CPU FFT + the plain versions): the
-    main path, an Apply of the deconvolution (few iterations, before the 2x
-    downscale so the scan is still >= 16x16), then the downscale. Every
-    published series and the image must agree after the Apply and at the
-    end. Returns (worst difference after the Apply, at the end)."""
+    main path; the 3-D view (live view, dense extraction, SaveVTU into
+    ``tmp``) at an opacity threshold no trace sits at; an Apply of the
+    deconvolution (few iterations, before the 2x downscale so the scan is
+    still >= 16x16); then the downscale. Every published series and the
+    image must agree after the Apply and at the end. Returns (3-D view
+    comparison, worst difference after the Apply, at the end)."""
     from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable as rl
     from thz_image_explorer_tpu_torch.pipeline import Explorer
 
     t, cube = synthetic_scan(24, 20, 128, seed=seed)
-    applied, final = [], []
+    exs = {}
     for device in ("cuda", "cpu"):
         ex = Explorer(device=device)
         drive_commands(ex, lambda: ex.open_arrays(t, cube, scan_metadata(1.0)), cube, 2, 2,
                        np.random.default_rng(seed))
+        exs[device] = ex
+    # the small scan's filtered traces are ~1e-2: at contrast 0.5 every
+    # envelope range stays far above the 1e-6 edge
+    for ex in exs.values():
+        ex.set_3d_contrast(0.5)
+    thr = gap_threshold(exs["cpu"].pipeline.output.data, exs["cpu"])
+    views = []
+    for device, ex in exs.items():
+        ex.set_opacity_threshold(thr)
+        views.append(view_products(ex, f"{tmp}/small_{device}.vtu"))
+    view = compare_views(*views)
+    applied, final = [], []
+    for device, ex in exs.items():
         ex.set_avg_in_fourier_space(True)
         ex.apply_psf(synthetic_psf())
         for key, value in (("n_filters", 6.0), ("n_iterations", 20.0),
@@ -336,7 +358,8 @@ def small_reference_check(seed):
         g, gi, c, ci, lambda ref: (1e-3 * float(np.abs(ref).max()), 0.0))
     (g, gi), (c, ci) = final
     worst = compare_plots(g, gi, c, ci, lambda ref: (5e-5, 1e-4))
-    return worst_apply, worst
+    return dict(threshold=thr, live_points=view[0], dense_points=view[1],
+                max_alpha_diff=view[2], max_opacity_diff=view[3]), worst_apply, worst
 
 
 # ---------------------------------------------------------------- Apply
@@ -501,6 +524,235 @@ def ragged_rl_cases(dev, gen):
     }
 
 
+# ---------------------------------------------------------------- 3-D view
+#: envelope kernel vs plain: |kernel - plain| on the [0, 1] opacities (sums
+#: in another order, powf vs torch.pow, fmaf vs mul + add)
+_ENV_TOL = 1e-5
+#: a trace whose envelope max lies within this relative distance of the
+#: opacity threshold, or whose range lies within it of 1e-6, may take the
+#: other branch on a 1-ulp difference; it is counted, not compared
+_ENV_EDGE = 1e-5
+#: web.py's view cap (web.py:766)
+_VIEW_MAX_POINTS = 120_000
+#: the view's opacity slider: the synthetic scan's per-trace envelope maxima
+#: run ~0.004-0.07 at the default contrast, sigma and radius, so the default
+#: 0.1 would zero every trace; a user lowers it so
+_VIEW_OPACITY_THRESHOLD = 0.02
+
+
+def envelope_edges(flat, taps, contrast, thr):
+    """Per trace of ``flat`` (N, T): True where the envelope's max or range
+    lies at a normalization edge (computed by the plain version's own
+    steps, in f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    r = len(taps) // 2
+    t = flat.shape[1]
+    taps = torch.as_tensor(taps, device=flat.device)
+    p = F.pad(torch.pow(flat * flat, float(contrast)), (r, r))
+    env = sum(taps[k] * p[:, k: k + t] for k in range(2 * r + 1))
+    lmax, lmin = env.amax(dim=1), env.amin(dim=1)
+    rng = lmax - lmin
+    return ((lmax - thr).abs() <= _ENV_EDGE * max(abs(thr), 1e-30)) | (
+        (rng.abs() - 1e-6).abs() <= _ENV_EDGE * 1e-6)
+
+
+def check_envelope(flat, taps, contrast, thr, label):
+    """Kernel vs plain on the card: |kernel - plain| <= _ENV_TOL on every
+    trace off the normalization edges, and two kernel runs bit-identical.
+    Returns (max abs error, traces at an edge)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+
+    got = env.envelope(flat, taps, contrast, thr)
+    again = env.envelope(flat, taps, contrast, thr)
+    ref = env.envelope_plain(flat, taps, contrast, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two kernel runs differ")
+    edge = envelope_edges(flat, taps, contrast, thr)
+    err = (got - ref).abs().amax(dim=1)
+    err = torch.where(edge, 0.0, err)
+    if bool((err > _ENV_TOL).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: max err {float(err.max())} over "
+                             f"{int((err > _ENV_TOL).sum())} traces")
+    return float(err.max()), int(edge.sum())
+
+
+def ragged_envelope_cases(dev, gen):
+    """Envelope inputs the main path does not give: T = 1000, r = 0 and
+    r = 40, asymmetric taps, contrast 0 with all-zero traces, taps longer
+    than the trace, and N no multiple of the block's 8 traces."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops.voxel import gaussian_kernel1d
+
+    def traces(n, t):
+        amp = 0.2 + 1.3 * torch.rand((n, 1), device=dev, generator=gen)
+        return (torch.randn((n, t), device=dev, generator=gen) * amp).contiguous()
+
+    def asym(k):
+        return (0.05 + torch.rand(k, generator=torch.Generator().manual_seed(k))).numpy()
+
+    zeros = traces(301, 512)
+    zeros[::7] = 0.0
+    return {
+        # name: (flat, taps, contrast, thr)
+        "t1000_n1003_gauss_r9": (traces(1003, 1000), gaussian_kernel1d(3.0, 9), 2.0, 0.1),
+        "t1024_n517_r0": (traces(517, 1024), np.array([0.8], np.float32), 2.0, 0.3),
+        "t1000_n999_asym_r40": (traces(999, 1000), asym(81), 2.0, 5.0),
+        "t777_n1001_asym_r5_c1.3": (traces(1001, 777), asym(11), 1.3, 0.4),
+        "t512_n301_c0_zero_traces": (zeros, asym(7), 0.0, 0.01),
+        "t20_n64_taps_longer_r30": (traces(64, 20), asym(61), 2.0, 1.0),
+    }
+
+
+def view_args(ex):
+    """web.py's ``voxels`` call (web.py:790-803) on the Explorer's final
+    slot with its 3-D settings: ``(data, keyword arguments)``."""
+    out, inp = ex.pipeline.output, ex.pipeline.input
+    t = out.time.cpu().numpy()
+    v0 = ex.pipeline.valid_wh0 or (inp.width, inp.height)
+    v3 = ex.view3d
+    return out.data, dict(
+        time_span=float(t[-1] - t[0]) if len(t) > 1 else 1.0, scaling=out.scaling,
+        original_dims=(v0[0], v0[1], inp.n_time), valid_grid=ex.pipeline.valid_for(out),
+        opacity_threshold=float(v3["opacity_threshold"]), contrast=float(v3["contrast"]),
+        kernel_sigma=float(v3["kernel_sigma"]), kernel_radius=int(v3["kernel_radius"]))
+
+
+def timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def live_view(ex):
+    """The live 3-D view as web.py serves it: ``(host ms, result)``."""
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    data, kw = view_args(ex)
+    return timed(lambda: voxel.extract_instances_topk(data, max_points=_VIEW_MAX_POINTS, **kw))
+
+
+def envelope_bound_ms(n, t, r, name):
+    """Bytes: the (N, T) f32 traces read and the opacities written once.
+    Operations per sample: 2 (2r + 1) for the taps (FMA = 2), the square 1,
+    powf 3 (lg2, multiply, ex2), min and max 2, subtract and divide 2."""
+    n_bytes = 2 * n * t * 4
+    n_ops = n * t * (2 * (2 * r + 1) + 8)
+    bytes_ms = n_bytes / memory_rate(name) * 1e3
+    ops_ms = n_ops / _F32_PEAK * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def gap_threshold(cube, ex):
+    """An opacity threshold midway in the widest gap between the per-trace
+    envelope maxima of the (X, Y, T) ``cube`` at ``ex``'s 3-D settings,
+    inside their middle half: no trace sits at it, and both branches run."""
+    import torch
+    import torch.nn.functional as F
+
+    from thz_image_explorer_tpu_torch.ops.voxel import gaussian_kernel1d
+
+    v3 = ex.view3d
+    r = int(v3["kernel_radius"])
+    taps = gaussian_kernel1d(v3["kernel_sigma"], r).astype(np.float64)
+    flat = cube.reshape(-1, cube.shape[-1]).double()
+    p = F.pad(torch.pow(flat * flat, float(v3["contrast"])), (r, r))
+    env = sum(float(taps[k]) * p[:, k: k + flat.shape[1]] for k in range(2 * r + 1))
+    m = np.sort(env.amax(dim=1).cpu().numpy())
+    lo, hi = len(m) // 4, 3 * len(m) // 4
+    i = lo + int(np.argmax(np.diff(m[lo:hi])))
+    assert (env.amax(dim=1) - env.amin(dim=1)).min() > 1e-4, "a trace's range is near 1e-6"
+    return float((m[i] + m[i + 1]) / 2)
+
+
+def view_products(ex, path):
+    """The live view, the dense extraction and a SaveVTU of ``ex``'s final
+    slot: ``(live result, dense result, points in the .vtu)``."""
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    data, kw = view_args(ex)
+    live = voxel.extract_instances_topk(data, max_points=_VIEW_MAX_POINTS, **kw)
+    dense = voxel.extract_instances(data, **kw)
+    ex.save_vtu(path)
+    with open(path) as f:
+        head = f.read(400)
+    n_vtu = int(head.split('NumberOfPoints="')[1].split('"')[0])
+    return live, dense, n_vtu
+
+
+def compare_views(g, c):
+    """Card vs CPU 3-D products. Live view: the same points (keyed by
+    position) with alpha within its 1/63 quantization step, except points
+    at the q = 1 cut (alpha 1/63) that one side's rounding dropped; the
+    threshold within a step. Dense: the same points, opacity within 1e-3
+    (the chain's atol 5e-5 raised by the contrast and the per-trace
+    normalization), colours within 4e-3 (jet has slope 4). The .vtu holds
+    the dense points. Returns (live points, dense points, worst alpha
+    difference, worst opacity difference)."""
+    (gl, gd, gn), (cl, cd, cn) = g, c
+    step = 1.0 / 63.0
+    gk = {tuple(np.round(p, 5)): a for p, a in zip(gl[0], gl[1][:, 3])}
+    ck = {tuple(np.round(p, 5)): a for p, a in zip(cl[0], cl[1][:, 3])}
+    for a, b in ((gk, ck), (ck, gk)):
+        for key in set(a) - set(b):
+            assert abs(a[key] - step) < 1e-6, ("live view point only on one side", key, a[key])
+    common = set(gk) & set(ck)
+    assert len(common) > 0
+    worst_alpha = max(abs(gk[k] - ck[k]) for k in common)
+    assert worst_alpha <= step + 1e-6, worst_alpha
+    assert abs(gl[5] - cl[5]) <= step + 1e-6 and gl[2:5] == cl[2:5]
+    np.testing.assert_array_equal(gd[0], cd[0])
+    np.testing.assert_allclose(gd[1][:, 3], cd[1][:, 3], atol=1e-3)
+    np.testing.assert_allclose(gd[1][:, :3], cd[1][:, :3], atol=4e-3)
+    assert gd[2:6] == cd[2:6]
+    assert gn == len(gd[0]) and cn == len(cd[0])
+    return (len(gl[0]), len(gd[0]), float(worst_alpha),
+            float(np.abs(gd[1][:, 3] - cd[1][:, 3]).max()))
+
+
+# ------------------------------------------------------ the 2-D RL kernels
+def gauss2d(kr, kc, r0, c0, sr, sc):
+    """A normalized off-centre (asymmetric) Gaussian PSF canvas."""
+    a = np.arange(kr, dtype=np.float64)[:, None] - kr // 2
+    b = np.arange(kc, dtype=np.float64)[None, :] - kc // 2
+    k = np.exp(-((a - r0) ** 2) / (2 * sr * sr) - ((b - c0) ** 2) / (2 * sc * sc))
+    return (k / k.sum()).astype(np.float32)
+
+
+def rl2d_bound_ms(h2, w2, kr, kc, n_iter, name):
+    """Bytes: the image read, the estimate written and the taps read once.
+    Operations: per iteration and pixel 2 kr kc FMAs (4 kr kc operations),
+    the guard add, the division and the multiply."""
+    n_bytes = (2 * h2 * w2 + kr * kc) * 4
+    n_ops = n_iter * h2 * w2 * (4 * kr * kc + 3)
+    bytes_ms = n_bytes / memory_rate(name) * 1e3
+    ops_ms = n_ops / _F32_PEAK * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_grouped(padded, px, py, n_iter, group, sequential, label):
+    """The grouped kernel equals ``rl_bands_separable`` bit for bit."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    got = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=group)
+    torch.cuda.synchronize()
+    if not torch.equal(got, sequential):
+        diff = float((got - sequential).abs().max())
+        raise AssertionError(f"{label} group={group}: differs from the sequential kernel "
+                             f"by {diff}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -513,7 +765,10 @@ def main() -> int:
         return 1
     from thz_image_explorer_tpu_torch import kernels
     from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import rl2d
     from thz_image_explorer_tpu_torch.ops import rlsep
+    from thz_image_explorer_tpu_torch.ops import voxel
     from thz_image_explorer_tpu_torch.ops import specred as sr
     from thz_image_explorer_tpu_torch.pipeline import Explorer
 
@@ -607,6 +862,55 @@ def main() -> int:
     main_masks = torch.cat([torch.ones((1, n), device=dev),
                             ex._mask_stack.reshape(-1, n)])
 
+    # 4b. the envelope kernel vs its plain version: the main path's own final
+    # cube at the view's settings, then ragged inputs
+    ex.set_opacity_threshold(_VIEW_OPACITY_THRESHOLD)
+    v3 = ex.view3d
+    env_taps = voxel.gaussian_kernel1d(v3["kernel_sigma"], v3["kernel_radius"])
+    env_args = (float(v3["contrast"]), float(v3["opacity_threshold"]))
+    final = ex.pipeline.output.data
+    env_flat = final.reshape(-1, final.shape[-1])
+    env_shape = list(env_flat.shape)
+    env_err, env_edges = check_envelope(env_flat, env_taps, *env_args, "main cube")
+    ragged_env = {label: check_envelope(*case, label)
+                  for label, case in ragged_envelope_cases(dev, gen).items()}
+    env_ms = time_ms(lambda: env.envelope(env_flat, env_taps, *env_args))
+    env_plain_ms = time_ms(lambda: env.envelope_plain(env_flat, env_taps, *env_args),
+                           reps=5, inner=1)
+    env_bound, env_bound_by = envelope_bound_ms(*env_flat.shape, int(v3["kernel_radius"]),
+                                                name)
+    emit(phase="envelope_kernel_vs_plain", main_shape=env_shape,
+         main_max_abs_err=env_err, main_edge_traces=env_edges,
+         ragged_max_abs_err={k: v[0] for k, v in ragged_env.items()},
+         ragged_edge_traces={k: v[1] for k, v in ragged_env.items()},
+         deterministic=True,
+         tolerance=f"|kernel-plain| <= {_ENV_TOL} on every trace off the normalization "
+                   f"edges (max or range within {_ENV_EDGE} relative of thr or 1e-6)",
+         kernel_ms=env_ms, plain_ms=env_plain_ms, bound_ms=env_bound, bound_by=env_bound_by)
+
+    # 4c. the 3-D view on the main path's Explorer: the live view as web.py
+    # serves it (packed fetch), then one dense extraction (the VTU export's)
+    assert final.numel() < voxel._PACK_IDX_LIMIT
+    env.envelope.launches = 0
+    views = [live_view(ex) for _ in range(11)]
+    data3d, kw3d = view_args(ex)
+    dense_ms, dense = timed(lambda: voxel.extract_instances(data3d, **kw3d))
+    view_launches = env.envelope.launches
+    assert view_launches == len(views) + 1, view_launches
+    view_ms = [v[0] for v in views]
+    pos, rgba, *_, view_thr = views[-1][1]
+    assert 0 < len(pos) <= _VIEW_MAX_POINTS and np.isfinite(pos).all() \
+        and np.isfinite(rgba).all() and (rgba[:, 3] > 0).all()
+    dense_above = int((dense[1][:, 3] > dense[5]).sum())
+    assert dense_above <= voxel.MAX_INSTANCES and np.isfinite(dense[0]).all()
+    emit(phase="view3d", shape=[width, height, n_time], card=smi, settings=dict(v3),
+         max_points=_VIEW_MAX_POINTS, fetch="packed", live_ms_median=statistics.median(view_ms),
+         live_ms=view_ms, live_points=len(pos), live_threshold=view_thr,
+         dense_ms=dense_ms, dense_points=len(dense[0]), dense_points_above_threshold=dense_above,
+         dense_threshold=dense[5], envelope_launches=view_launches,
+         envelope_launches_per_view=1)
+    del views, dense, data3d
+
     # 5. the Apply path on the same Explorer: filters and ROIs stay active
     sr.spectral_reduction_sums.launches = 0
     rlsep.rl_bands_separable.launches = 0
@@ -618,6 +922,17 @@ def main() -> int:
          psf="synthetic: wx=0.70/f+0.50 mm, wy=0.85/f+0.55 mm, x0=0.3 mm, y0=-0.2 mm",
          params="default DeconvolutionParams (25 bands, 500 iterations)",
          specred_launches=sr.spectral_reduction_sums.launches, **apply, geometry=geo)
+
+    # 5b. the 3-D view of the deconvolved final slot: no RL launch
+    k = ex.pipeline.index_of("deconvolution")
+    assert ex.pipeline.slots[k] is not ex.pipeline.slots[k - 1]
+    rl_before, env_before = rlsep.rl_bands_separable.launches, env.envelope.launches
+    after_ms, after = live_view(ex)
+    after_rl = rlsep.rl_bands_separable.launches - rl_before
+    assert after_rl == 0 and env.envelope.launches == env_before + 1
+    assert 0 < len(after[0]) <= _VIEW_MAX_POINTS and np.isfinite(after[1]).all()
+    emit(phase="view3d_after_apply", live_ms=after_ms, live_points=len(after[0]),
+         live_threshold=after[5], rl_launches=after_rl, envelope_launches=1)
 
     # 6. the RL kernel vs its plain version: the Apply's own inputs, then
     # ragged ones
@@ -639,13 +954,90 @@ def main() -> int:
                           reps=3, inner=1, warm=1)
     rl_bound, rl_bound_by, rl_ops = rl_bound_ms(geometry, (width, height), name)
     rl_shape = list(padded.shape)
-    del padded, px, py
+    sequential = rlsep.rl_bands_separable(padded, px, py, n_iter)
+
+    # 6b. the general 2-D RL kernel: (a) the Apply's band-0 canvas with an
+    # asymmetric 9x9 PSF at the band's n_iter, against the plain version;
+    # (b) two bands' separable PSFs px (x) py as 2-D PSFs, against the
+    # separable kernel's output for those bands (the same function)
+    canvas, n0 = padded[0], int(n_iter[0])
+    rl2d_shape = list(canvas.shape)
+    assert n0 > 0
+    psf9 = torch.as_tensor(gauss2d(9, 9, 1.3, -0.8, 1.5, 2.2), device=dev)
+    rl2d.richardson_lucy_direct.launches = 0
+    u2 = rl2d.richardson_lucy_direct(canvas, psf9, n0)
+    rl2d_launches = rl2d.richardson_lucy_direct.launches
+    assert rl2d_launches == 2 * n0
+    again = rl2d.richardson_lucy_direct(canvas, psf9, n0)
+    ref2 = rl2d.richardson_lucy_direct_plain(canvas, psf9, n0)
+    torch.cuda.synchronize()
+    assert torch.equal(u2, again), "two rl2d kernel runs differ"
+    rl2d_err = float((u2 - ref2).abs().max())
+    rl2d_scale = float(ref2.abs().max())
+    assert rl2d_err <= _RL_REL_TOL * rl2d_scale and bool(torch.isfinite(u2).all()), rl2d_err
+    use_fft = geometry.use_fft_conv
+    picks = [int(np.flatnonzero(use_fft & (n_iter > 0))[0]),
+             int(np.flatnonzero(~use_fft & (n_iter > 0))[0])]
+    outer = {}
+    for b in picks:
+        psf_b = torch.outer(px[b], py[b]).contiguous()
+        u_b = rl2d.richardson_lucy_direct(padded[b].contiguous(), psf_b, int(n_iter[b]))
+        err = float((u_b - sequential[b]).abs().max())
+        scale = float(sequential[b].abs().max())
+        assert err <= _RL_REL_TOL * scale, (b, err, scale)
+        outer[f"band{b}_{'fft' if use_fft[b] else 'direct'}_{tuple(psf_b.shape)}"
+              f"_n{int(n_iter[b])}"] = err / scale
+    rl2d_ms = time_ms(lambda: rl2d.richardson_lucy_direct(canvas, psf9, n0),
+                      reps=5, inner=1, warm=1)
+    rl2d_plain_ms = time_ms(lambda: rl2d.richardson_lucy_direct_plain(canvas, psf9, n0),
+                            reps=3, inner=1, warm=1)
+    rl2d_bound, rl2d_bound_by = rl2d_bound_ms(*canvas.shape, 9, 9, n0, name)
+    emit(phase="rl2d_kernel_vs_plain", shape=rl2d_shape, psf=[9, 9], n_iter=n0,
+         max_abs_err=rl2d_err, max_rel_err=rl2d_err / rl2d_scale, deterministic=True,
+         outer_product_rel_err_vs_rlsep=outer,
+         tolerance=f"|kernel-plain| <= {_RL_REL_TOL} * max|plain|; outer products vs the "
+                   f"rlsep kernel's band, the same",
+         kernel_ms=rl2d_ms, plain_ms=rl2d_plain_ms, bound_ms=rl2d_bound,
+         bound_by=rl2d_bound_by, launches=rl2d_launches)
+    del u2, again, ref2
+
+    # 6c. the grouped separable kernel: bit for bit the sequential kernel, on
+    # the Apply's RL inputs (group 5 and 1) and on the ragged cases (group 2
+    # where B is even, else group B)
+    assert padded.shape[0] % 5 == 0
+    rlsep.rl_bands_separable_grouped.launches = 0
+    grouped = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=5)
+    grouped_launches = rlsep.rl_bands_separable_grouped.launches
+    torch.cuda.synchronize()
+    assert torch.equal(grouped, sequential), "group=5 differs from the sequential kernel"
+    assert grouped_launches == 2 * int(n_iter.max())
+    check_grouped(padded, px, py, n_iter, 1, sequential, "apply geometry")
+    ragged_groups = {}
+    for label, inputs in ragged_rl_cases(dev, gen).items():
+        group = 2 if inputs[0].shape[0] % 2 == 0 else inputs[0].shape[0]
+        check_grouped(*inputs, group, rlsep.rl_bands_separable(*inputs), label)
+        ragged_groups[label] = group
+    grouped_ms = time_ms(
+        lambda: rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=5),
+        reps=5, inner=1, warm=1)
+    grouped1_ms = time_ms(
+        lambda: rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1),
+        reps=5, inner=1, warm=1)
+    emit(phase="rl_grouped_vs_sequential", shape=rl_shape, group=5, bit_identical=True,
+         ragged_groups=ragged_groups, kernel_ms_group5=grouped_ms,
+         kernel_ms_group1=grouped1_ms, sequential_ms=rl_ms, launches=grouped_launches)
+    del padded, px, py, sequential, grouped
 
     # 7. card vs CPU on a small scan: main path, Apply, downscale
-    worst_apply, worst = small_reference_check(args.seed)
+    small_tmp = tempfile.TemporaryDirectory()
+    small_view, worst_apply, worst = small_reference_check(args.seed, small_tmp.name)
+    small_tmp.cleanup()
     emit(phase="small_reference", shape=[24, 20, 128],
          compared="cuda vs cpu port, every data-derived PlotData series + image, "
-                  "after the Apply and at the end",
+                  "after the Apply and at the end; the 3-D view before the Apply",
+         view3d=small_view,
+         tolerance_view3d="live view: same points, alpha within 1/63; dense: same points, "
+                          "opacity atol 1e-3, rgb 4e-3; .vtu points == dense points",
          tolerance_apply="atol = 1e-3 * max|series|", tolerance="atol=5e-5, rtol=1e-4",
          max_abs_diff_apply=worst_apply, max_abs_diff=worst)
 
@@ -659,7 +1051,7 @@ def main() -> int:
     n_ops = n * f * (4 + 2 + 2 * 2 * m)
     bytes_ms = n_bytes / memory_rate(name) * 1e3
     ops_ms = n_ops / _F32_PEAK * 1e3
-    del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks
+    del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks, final, env_flat, canvas
     torch.cuda.empty_cache()
 
     # 9. scale: the README's larger scan, 512x512x1024 (a 1 GiB cube)
@@ -682,9 +1074,22 @@ def main() -> int:
         torch.cuda.synchronize()
         scale_ms.append((time.perf_counter() - t0) * 1e3)
     assert np.isfinite(ex5.plot.avg_signal_fft).all() and ex5.image.shape == (512, 512)
+    scale_peak = torch.cuda.max_memory_allocated()
+    assert ex5.pipeline.output.data.numel() >= voxel._PACK_IDX_LIMIT
+    ex5.set_opacity_threshold(_VIEW_OPACITY_THRESHOLD)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    env_before = env.envelope.launches
+    scale_view_ms, scale_view = live_view(ex5)
+    assert env.envelope.launches == env_before + 1
+    assert 0 < len(scale_view[0]) <= _VIEW_MAX_POINTS and np.isfinite(scale_view[1]).all()
     emit(phase="scale", shape=[512, 512, 1024], card=smi, open_ms=open_ms,
          slider_ms_median=statistics.median(scale_ms), slider_ms=scale_ms,
-         max_memory_allocated=torch.cuda.max_memory_allocated())
+         max_memory_allocated=scale_peak, view_fetch="unpacked (f16 + i32)",
+         view_ms=scale_view_ms, view_points=len(scale_view[0]),
+         view_threshold=scale_view[5],
+         view_memory_allocated_before=resident,
+         view_max_memory_allocated=torch.cuda.max_memory_allocated())
     del ex5, cube5
     torch.cuda.empty_cache()
 
@@ -721,6 +1126,52 @@ def main() -> int:
         "library_ms": None,
         "shape": rl_shape,
         "n_iter_sum": geo["n_iter_sum"],
+    }, {
+        "name": "envelope",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/envelope.cu",
+        "replaces": _ENVELOPE_REPLACES,
+        "launches": view_launches,
+        "max_abs_err": env_err,
+        "ms": env_ms,
+        "plain_ms": env_plain_ms,
+        "bound_ms": env_bound,
+        "bound_by": env_bound_by,
+        # no single PyTorch call computes the power, correlation and
+        # per-trace normalization
+        "library_ms": None,
+        "shape": env_shape,
+    }, {
+        "name": "rl2d",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/rl2d.cu",
+        "replaces": _RL2D_REPLACES,
+        # no production path: one run through richardson_lucy_direct
+        "launches": rl2d_launches,
+        "max_abs_err": rl2d_err,
+        "ms": rl2d_ms,
+        "plain_ms": rl2d_plain_ms,
+        "bound_ms": rl2d_bound,
+        "bound_by": rl2d_bound_by,
+        # no single PyTorch call runs the Richardson-Lucy recurrence
+        "library_ms": None,
+        "shape": rl2d_shape + [9, 9],
+        "n_iter": n0,
+    }, {
+        "name": "rlsep_grouped",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/rlsep.cu",
+        "replaces": _RLSEP_GROUPED_REPLACES,
+        # no production path: one run through rl_bands_separable_grouped
+        "launches": grouped_launches,
+        "max_abs_err": 0.0,
+        "ms": grouped_ms,
+        "plain_ms": rl_plain_ms,
+        "bound_ms": rl_bound,
+        "bound_by": rl_bound_by,
+        "library_ms": None,
+        "shape": rl_shape,
+        "group": 5,
     }]}), flush=True)
     print(smi, flush=True)
     # 11. the last line

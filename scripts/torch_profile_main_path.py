@@ -5,13 +5,15 @@
 
 Opens the synthetic size x size x 1024 scan of ``chip_smoke.py`` through
 ``Explorer(device="cuda")`` with the same filters and ROIs, warms up, then
-traces 5 slider updates and 10 pixel clicks with ``torch.profiler``. Then
-the Apply path of ``chip_smoke.py`` (its synthetic PSF, default 25 bands /
-500 iterations): one untraced first Apply, which plans the bands on the
-host (the script also times that host planning on its own: ``plan_bands``
-and the energy matrices), and 2 traced repeat Applies (plan cached).
-Prints one JSON line per
-traced phase: wall ms per command (host clock around work that ends in a
+traces 5 slider updates and 10 pixel clicks with ``torch.profiler``; then
+the 3-D view of the final slot at ``chip_smoke.py``'s view settings: 5
+traced live views (``extract_instances_topk`` as web.py serves it) and one
+traced dense extraction (the VTU export's). Then the Apply path of
+``chip_smoke.py`` (its synthetic PSF, default 25 bands / 500 iterations):
+one untraced first Apply, which plans the bands on the host (the script
+also times that host planning on its own: ``plan_bands`` and the energy
+matrices), and 2 traced repeat Applies (plan cached). Prints one JSON line
+per traced phase: wall ms per command (host clock around work that ends in a
 synchronize), device-busy ms per command (the sum of the kernels' and
 copies' own device time), the device's idle share, the kernels and copies
 launched per command, and the 12 kernels with the most device time.
@@ -32,10 +34,13 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (  # noqa: E402
+    _VIEW_MAX_POINTS,
+    _VIEW_OPACITY_THRESHOLD,
     roi_polygons,
     scan_metadata,
     synthetic_psf,
     synthetic_scan,
+    view_args,
 )
 
 
@@ -112,6 +117,19 @@ def main() -> int:
         for _ in range(10)
     ], card)
     print(json.dumps({"stage_ms_last_run": ex.pipeline.timings_ms, "card": card}))
+
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    ex.set_opacity_threshold(_VIEW_OPACITY_THRESHOLD)
+    data3d, kw3d = view_args(ex)
+
+    def live():
+        voxel.extract_instances_topk(data3d, max_points=_VIEW_MAX_POINTS, **kw3d)
+
+    live()  # warm-up
+    traced("view3d_live", [live] * 5, card)
+    traced("view3d_dense", [lambda: voxel.extract_instances(data3d, **kw3d)], card)
+    del data3d
 
     from thz_image_explorer_tpu_torch.ops import deconvolution as dec
 

@@ -5,15 +5,18 @@ reference the port is tested against). Layout mirrors it module by module:
 
 ``data``      the :class:`~thz_image_explorer_tpu_torch.data.ScanCube`
               dataclass of tensors, frequency axis, load preprocessing
-``io``        dotTHz (HDF5) reader/writer, the in-memory open, and the
-              PSF ``.npz`` codec
+``io``        dotTHz (HDF5) reader/writer, the in-memory open, the
+              PSF ``.npz`` codec and the VTU export
 ``models``    the frequency-resolved PSF model (splines + hybrid fits)
 ``ops``       windows, band-passes, FFT/unwrap, scaling, intensity,
               ROI masks, optical properties, the one-pass spectral
               reduction (``ops/specred.py`` + ``csrc/specred.cu``), the
               FIR bank and the frequency-resolved Richardson-Lucy
               deconvolution (``ops/deconvolution.py``, its kernel
-              ``ops/rlsep.py`` + ``csrc/rlsep.cu``)
+              ``ops/rlsep.py`` + ``csrc/rlsep.cu``), the 3-D voxel view
+              (``ops/voxel.py``, its kernel ``ops/envelope.py`` +
+              ``csrc/envelope.cu``) and the general 2-D Richardson-Lucy
+              kernel (``ops/rl2d.py`` + ``csrc/rl2d.cu``)
 ``pipeline``  stage protocol, filters, the per-stage executor, publish
               and the :class:`~thz_image_explorer_tpu_torch.pipeline.
               explorer.Explorer` command facade

@@ -20,7 +20,13 @@ launches per iteration, each over every band still iterating) or raises;
 on a CPU tensor it runs :func:`rl_bands_separable_plain`, the same function
 as dense banded matmuls in plain PyTorch (f32; TF32 is off).
 
-Both take ``between(done, total) -> bool``, called on the host before each
+:func:`rl_bands_separable_grouped` is the same function with ``group``
+bands per kernel block (port of ``pallas_rl.py:rl_bands_separable_grouped``,
+the JAX package's G-band interleave): on the card its output equals
+:func:`rl_bands_separable`'s bit for bit. No production path calls it.
+
+Both :func:`rl_bands_separable` and the plain version take
+``between(done, total) -> bool``, called on the host before each
 group of at most :data:`GROUP` iterations (``done`` groups of ``total`` run
 so far); returning True stops the run and the function returns None. That
 is where the deconvolution reports progress and checks cancellation.
@@ -130,16 +136,38 @@ def rl_bands_separable(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 rl_bands_separable.launches = 0
 
 
+def rl_bands_separable_grouped(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                               n_iter, *, group: int = 2) -> torch.Tensor:
+    """:func:`rl_bands_separable` with ``group`` bands per kernel block: the
+    same operands and result, ``B % group == 0``. On a CPU tensor it runs
+    :func:`rl_bands_separable_plain`. ``rl_bands_separable_grouped.launches``
+    counts its kernel launches (two per iteration)."""
+    n_iter = _check(padded, px, py, n_iter)
+    if group < 1 or padded.shape[0] % group != 0:
+        raise ValueError(f"B = {padded.shape[0]} is not a multiple of group = {group}")
+    if padded.device.type == "cpu":
+        return rl_bands_separable_plain(padded, px, py, n_iter)
+    if padded.device.type != "cuda":
+        raise ValueError(f"no Richardson-Lucy kernel for device {padded.device}")
+    with torch.cuda.device(padded.device):
+        return _run_kernel(padded, px, py, n_iter, None, group=group,
+                           counter=rl_bands_separable_grouped)
+
+
+rl_bands_separable_grouped.launches = 0
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("rlsep")
     fn = lib.thz_rlsep
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _run_kernel(padded, px, py, n_iter, between: Between):
+def _run_kernel(padded, px, py, n_iter, between: Between, *, group: int = 1,
+                counter=rl_bands_separable):
     lib = _library()
     b, h2, w2 = padded.shape
     max_iter = int(n_iter.max(initial=0))
@@ -162,9 +190,9 @@ def _run_kernel(padded, px, py, n_iter, between: Between):
         err = lib.thz_rlsep(
             u.data_ptr(), rel.data_ptr(), padded.data_ptr(), px.data_ptr(),
             py.data_ptr(), order_dev.data_ptr(), counts.ctypes.data, i0, i1,
-            b, h2, w2, px.shape[1], py.shape[1], stream,
+            b, h2, w2, px.shape[1], py.shape[1], group, stream,
         )
         if err != 0:
             raise RuntimeError(f"rlsep kernel launch failed: CUDA error {err}")
-        rl_bands_separable.launches += 2 * (i1 - i0)
+        counter.launches += 2 * (i1 - i0)
     return u

@@ -23,7 +23,9 @@ import torch
 from thz_image_explorer_tpu_torch.data import resolve_device
 from thz_image_explorer_tpu_torch.io import dotthz as thzio
 from thz_image_explorer_tpu_torch.io.psf_npz import load_psf
+from thz_image_explorer_tpu_torch.io.vtk import export_to_vtk
 from thz_image_explorer_tpu_torch.ops.roi import polygon_mask
+from thz_image_explorer_tpu_torch.ops.voxel import extract_instances
 from thz_image_explorer_tpu_torch.ops.windows import WindowType
 from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
 from thz_image_explorer_tpu_torch.pipeline.publish import Publisher
@@ -140,6 +142,13 @@ class Explorer:
         self._mask_key = None
         self._mask_stack: Optional[torch.Tensor] = None
         self._poly_masks: dict = {}
+        # 3-D voxel view parameters (threed_plot.rs / paper.md:100-111)
+        self.view3d = {
+            "contrast": 2.0,
+            "kernel_sigma": 3.0,
+            "kernel_radius": 9,
+            "opacity_threshold": 0.1,
+        }
 
     # ------------------------------------------------------------ files
     def open_file(self, path: str):
@@ -181,6 +190,29 @@ class Explorer:
         md.set_rois(self.rois)
         thzio.save_scan(path, inp, md)
 
+    def save_vtu(self, path: str):
+        """SaveVTU (``data_thread.rs:769-786``): export the 3-D voxel
+        instances of the final slot (the dense extraction) with the current
+        3-D view settings."""
+        out = self.pipeline.output
+        inp = self.pipeline.input
+        if out is None or inp is None:
+            return
+        t = out.time.cpu().numpy()
+        v0 = self.pipeline.valid_wh0 or (inp.width, inp.height)
+        positions, rgba, *_ = extract_instances(
+            out.data,
+            time_span=float(t[-1] - t[0]) if len(t) > 1 else 1.0,
+            scaling=out.scaling,
+            original_dims=(v0[0], v0[1], inp.n_time),
+            valid_grid=self.pipeline.valid_for(out),
+            opacity_threshold=self.view3d["opacity_threshold"],
+            contrast=self.view3d["contrast"],
+            kernel_sigma=self.view3d["kernel_sigma"],
+            kernel_radius=self.view3d["kernel_radius"],
+        )
+        export_to_vtk(positions, rgba, path)
+
     def open_psf(self, path: str):
         """OpenPSF (``data_thread.rs:797-812``): load a PSF ``.npz`` for the
         deconvolution. Takes effect at the next Apply."""
@@ -189,6 +221,22 @@ class Explorer:
     def apply_psf(self, psf):
         """ApplyPSF from the PSF tool (``data_thread.rs:787-796``)."""
         self.pipeline.psf = psf
+
+    # ------------------------------------------------- 3D view settings
+    def set_3d_contrast(self, contrast: float):
+        """Set3DContrast (``data_thread.rs:849-852``)."""
+        self.view3d["contrast"] = float(contrast)
+
+    def set_kernel_sigma(self, sigma: float):
+        """SetKernelSigma (``data_thread.rs:845-848``)."""
+        self.view3d["kernel_sigma"] = float(sigma)
+
+    def set_kernel_radius(self, radius: int):
+        """SetKernelRadius (``data_thread.rs:841-844``)."""
+        self.view3d["kernel_radius"] = int(radius)
+
+    def set_opacity_threshold(self, threshold: float):
+        self.view3d["opacity_threshold"] = float(threshold)
 
     # ------------------------------------------------------- fft config
     def set_fft_window_low(self, low: float):
