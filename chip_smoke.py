@@ -10,9 +10,11 @@ README's reference scan size (200x200x1024): open, filter chain, ROI set,
 slider updates and pixel clicks; then the 3-D voxel view of that scan as
 the web view serves it (the live top-k view and one dense extraction); then
 the deconvolution Apply path on the same scan with a synthetic asymmetric
-PSF (25 bands, 500 iterations), followed by slider steps and clicks that
-must not rerun it and a 3-D view of the deconvolved scan; the general 2-D
-and the grouped Richardson-Lucy kernels on the Apply's own inputs; then the
+PSF (25 bands, 500 iterations: one cluster-kernel launch per progress
+checkpoint), followed by slider steps and clicks that must not rerun it and
+a 3-D view of the deconvolved scan; both separable Richardson-Lucy routes
+(the cluster kernel and the half-iteration kernel), the general 2-D and the
+grouped Richardson-Lucy kernels on the Apply's own inputs; then the
 same commands, the 3-D view and SaveVTU on a small scan on the card and on
 the CPU; and finally a 512x512x1024 scan with one live 3-D view. Each phase
 prints one JSON line; the script exits
@@ -27,6 +29,7 @@ power limit it prints first.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -47,6 +50,8 @@ _RLSEP_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:140"
 _ENVELOPE_REPLACES = "thz_image_explorer_tpu/ops/voxel.py:213"
 _RL2D_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:61"
 _RLSEP_GROUPED_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:157"
+#: the SMs of an H100 SXM, for the cluster kernel's critical-path floor
+_SMS = 132
 #: kernel vs plain Richardson-Lucy, per band: |kernel - plain| <= this *
 #: max|plain| (summation order, compounded over up to 500 multiplicative
 #: iterations)
@@ -346,9 +351,10 @@ def small_reference_check(seed, tmp):
                            ("start_freq", 0.25), ("end_freq", 4.0)):
             ex.set_filter_param("deconvolution", key, value)
         ex.set_filter_active("deconvolution", True)
-        before = rl.launches
+        before = rl.launches + rl.launches_tiled
         ex.update_filter("deconvolution", force=True)
-        assert device == "cpu" or rl.launches > before, "the small Apply launched no RL kernel"
+        assert device == "cpu" or rl.launches + rl.launches_tiled > before, \
+            "the small Apply launched no RL kernel"
         applied.append((ex.plot, ex.image))
         ex.set_downscaling(2)
         final.append((ex.plot, ex.image))
@@ -367,12 +373,18 @@ def drive_apply(ex, n_slider, n_clicks, rng):
     """The Apply path as a user drives it, on an open scan: the PSF, the
     deconvolution switched on (no rerun), Apply (the first one plans the
     bands on the host), then slider steps and clicks (the deconvolution is
-    suppressed: no RL launch), then Apply again (the plan is cached).
+    suppressed: no RL launch), then Apply again (the plan is cached). Each
+    Apply launches the cluster kernel once per non-empty checkpoint group
+    and the half-iteration kernel never (the canvas fits a cluster).
     Returns (measurements, band geometry, the deconvolution's input at the
     first Apply)."""
     import torch
 
+    from thz_image_explorer_tpu_torch.ops.rlsep import launch_schedule
     from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable as rl
+
+    def rl_launches():
+        return rl.launches + rl.launches_tiled
 
     p = ex.pipeline
     image_before = ex.image.copy()
@@ -386,11 +398,15 @@ def drive_apply(ex, n_slider, n_clicks, rng):
     ex.update_filter("deconvolution", force=True)
     torch.cuda.synchronize()
     apply_ms = (time.perf_counter() - t0) * 1e3
-    apply_launches = rl.launches
+    apply_launches, tiled_launches = rl.launches, rl.launches_tiled
+    geometry = p.filters["deconvolution"]._plan_cache[1]
+    expected = len(launch_schedule(geometry.n_iter))
     out = dict(apply_ms=apply_ms, stage_ms=p.timings_ms["deconvolution"],
-               rl_launches=apply_launches,
+               rl_launches=apply_launches, rl_launches_expected=expected,
+               rl_tiled_launches=tiled_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
-    assert apply_launches > 0, "the Apply launched no RL kernel"
+    assert apply_launches == expected > 0, (apply_launches, expected)
+    assert tiled_launches == 0, tiled_launches
     width, height = ex.image.shape
     assert np.isfinite(ex.image).all(), "deconvolved image not finite"
     for key in ("filtered_signal", "avg_signal", "signal_fft", "avg_signal_fft"):
@@ -399,15 +415,14 @@ def drive_apply(ex, n_slider, n_clicks, rng):
         "the Apply left the image unchanged"
     k = p.index_of("deconvolution")
     deconv_input = p.slots[k - 1].data
-    geometry = p.filters["deconvolution"]._plan_cache[1]
 
     def run(cmd):
-        before = rl.launches
+        before = rl_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cmd()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, rl.launches - before
+        return (time.perf_counter() - t0) * 1e3, rl_launches() - before
 
     slider = [run(lambda i=i: ex.set_fft_window_low(1.3 + 0.05 * i)) for i in range(n_slider)]
     clicks = [run(lambda: ex.set_selected_pixel(int(rng.integers(width)),
@@ -417,8 +432,10 @@ def drive_apply(ex, n_slider, n_clicks, rng):
     assert p.slots[k] is p.slots[k - 1], "a slider step kept the deconvolved result"
     out.update(slider_ms=[m for m, _ in slider], slider_rl_launches=[n for _, n in slider],
                click_ms=[m for m, _ in clicks], click_rl_launches=[n for _, n in clicks])
+    tiled_before = rl.launches_tiled
     again_ms, again_launches = run(lambda: ex.update_filter("deconvolution", force=True))
-    assert again_launches == apply_launches, (again_launches, apply_launches)
+    assert again_launches == apply_launches and rl.launches_tiled == tiled_before, \
+        (again_launches, apply_launches)
     assert np.isfinite(ex.image).all()
     out.update(apply_again_ms=again_ms, apply_again_stage_ms=p.timings_ms["deconvolution"],
                apply_again_rl_launches=again_launches)
@@ -456,26 +473,80 @@ def rl_bound_ms(geometry, shape, name):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_ops
 
 
-def check_rl(padded, px, py, n_iter, label):
-    """Kernel vs plain on the card: per band |kernel - plain| <=
-    _RL_REL_TOL * max|plain|, and two kernel runs bit-identical. Returns
+def rl_errors(got, ref, label):
+    """Per band |got - ref| <= _RL_REL_TOL * max|ref|, all finite. Returns
     (max abs error, max per-band relative error)."""
     import torch
 
-    from thz_image_explorer_tpu_torch.ops import rlsep
-
-    got = rlsep.rl_bands_separable(padded, px, py, n_iter)
-    again = rlsep.rl_bands_separable(padded, px, py, n_iter)
-    ref = rlsep.rl_bands_separable_plain(padded, px, py, n_iter)
-    torch.cuda.synchronize()
-    if not torch.equal(got, again):
-        raise AssertionError(f"{label}: two kernel runs differ")
     err = (got - ref).abs().amax(dim=(1, 2))
     scale = ref.abs().amax(dim=(1, 2))
     rel = err / torch.clamp(scale, min=1e-30)
     if bool((err > _RL_REL_TOL * scale).any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{label}: per-band err {err.tolist()} vs max {scale.tolist()}")
     return float(err.max()), float(rel.max())
+
+
+def check_rl(padded, px, py, n_iter, label, route, ref=None):
+    """``rl_bands_separable`` vs plain on the card, through ``route``
+    ("cluster" or "tiled", which the shapes must select): per band
+    |kernel - plain| <= _RL_REL_TOL * max|plain|, and two kernel runs
+    bit-identical. Returns (max abs error, max per-band relative error)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    fn = rlsep.rl_bands_separable
+    before = fn.launches, fn.launches_tiled
+    got = fn(padded, px, py, n_iter)
+    again = fn(padded, px, py, n_iter)
+    counted = fn.launches - before[0], fn.launches_tiled - before[1]
+    took = "cluster" if counted[1] == 0 else "tiled"
+    assert took == route and (counted[0] == 0) == (route == "tiled"), (label, counted)
+    if ref is None:
+        ref = rlsep.rl_bands_separable_plain(padded, px, py, n_iter)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two kernel runs differ")
+    return rl_errors(got, ref, label)
+
+
+@contextlib.contextmanager
+def preferred_cluster(s):
+    """The cluster route at ``s`` CTAs per band where that fits."""
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    kept = rlsep.PREFERRED_CLUSTER
+    rlsep.PREFERRED_CLUSTER = s
+    try:
+        yield
+    finally:
+        rlsep.PREFERRED_CLUSTER = kept
+
+
+def rl_critical_path_ms(geometry, shape, s):
+    """The cluster kernel's floor: the band with the most work (n_iter x
+    its region x operations per pixel, as ``rl_bound_ms`` counts them) on
+    the ``s`` SMs of its cluster at their share of the f32 peak."""
+    kr = 2 * geometry.pad_r.astype(np.int64) + 1
+    kc = 2 * geometry.pad_c.astype(np.int64) + 1
+    area = (shape[0] + kr - 1) * (shape[1] + kc - 1)
+    per_band = geometry.n_iter.astype(np.int64) * area * (4 * kr + 4 * kc + 3)
+    return float(per_band.max()) / (_F32_PEAK * s / _SMS) * 1e3, int(per_band.max())
+
+
+def over_limit_rl_case(dev, gen):
+    """B = 1 on a 720x720 canvas with the Apply's widest reach (47 x 57
+    taps), 3 iterations: more than 16 CTAs' shared memory holds, so the
+    half-iteration route runs it."""
+    import torch
+
+    x = torch.arange(47, device=dev, dtype=torch.float32) - 23
+    y = torch.arange(57, device=dev, dtype=torch.float32) - 28
+    px = torch.exp(-(x - 2.0) ** 2 / 60.0)[None].contiguous()
+    py = torch.exp(-(y + 3.0) ** 2 / 90.0)[None].contiguous()
+    padded = torch.zeros((1, 720, 720), device=dev)
+    padded[0, 23:697, 28:692] = 0.2 + 1.3 * torch.rand((674, 664), device=dev, generator=gen)
+    return padded, px, py, np.array([3], np.int64)
 
 
 def ragged_rl_cases(dev, gen):
@@ -739,18 +810,18 @@ def rl2d_bound_ms(h2, w2, kr, kc, n_iter, name):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def check_grouped(padded, px, py, n_iter, group, sequential, label):
-    """The grouped kernel equals ``rl_bands_separable`` bit for bit."""
+def check_grouped(padded, px, py, n_iter, group, group1, label):
+    """The grouped kernel equals ``group1``, its own output at group 1 (the
+    half-iteration kernel's launch), bit for bit."""
     import torch
 
     from thz_image_explorer_tpu_torch.ops import rlsep
 
     got = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=group)
     torch.cuda.synchronize()
-    if not torch.equal(got, sequential):
-        diff = float((got - sequential).abs().max())
-        raise AssertionError(f"{label} group={group}: differs from the sequential kernel "
-                             f"by {diff}")
+    if not torch.equal(got, group1):
+        diff = float((got - group1).abs().max())
+        raise AssertionError(f"{label} group={group}: differs from group 1 by {diff}")
 
 
 def main() -> int:
@@ -914,9 +985,14 @@ def main() -> int:
     # 5. the Apply path on the same Explorer: filters and ROIs stay active
     sr.spectral_reduction_sums.launches = 0
     rlsep.rl_bands_separable.launches = 0
+    rlsep.rl_bands_separable.launches_tiled = 0
     apply, geometry, deconv_input = drive_apply(ex, 3, 5, np.random.default_rng(args.seed))
+    # two Applies, each one cluster launch per non-empty checkpoint group
+    # (9 at the default parameters) and no half-iteration launch
     apply_launches = rlsep.rl_bands_separable.launches
-    assert apply_launches == 2 * apply["rl_launches"] > 0
+    apply_tiled_launches = rlsep.rl_bands_separable.launches_tiled
+    assert apply_launches == 2 * len(rlsep.launch_schedule(geometry.n_iter)) > 0
+    assert apply_tiled_launches == 0
     geo = geometry_summary(geometry, (width, height))
     emit(phase="apply", shape=[width, height, n_time], card=smi, dx_mm=0.5,
          psf="synthetic: wx=0.70/f+0.50 mm, wy=0.85/f+0.55 mm, x0=0.3 mm, y0=-0.2 mm",
@@ -926,35 +1002,85 @@ def main() -> int:
     # 5b. the 3-D view of the deconvolved final slot: no RL launch
     k = ex.pipeline.index_of("deconvolution")
     assert ex.pipeline.slots[k] is not ex.pipeline.slots[k - 1]
-    rl_before, env_before = rlsep.rl_bands_separable.launches, env.envelope.launches
+    def rl_count():
+        return rlsep.rl_bands_separable.launches + rlsep.rl_bands_separable.launches_tiled
+
+    rl_before, env_before = rl_count(), env.envelope.launches
     after_ms, after = live_view(ex)
-    after_rl = rlsep.rl_bands_separable.launches - rl_before
+    after_rl = rl_count() - rl_before
     assert after_rl == 0 and env.envelope.launches == env_before + 1
     assert 0 < len(after[0]) <= _VIEW_MAX_POINTS and np.isfinite(after[1]).all()
     emit(phase="view3d_after_apply", live_ms=after_ms, live_points=len(after[0]),
          live_threshold=after[5], rl_launches=after_rl, envelope_launches=1)
 
-    # 6. the RL kernel vs its plain version: the Apply's own inputs, then
-    # ragged ones
+    # 6. the separable RL kernels vs their plain version: the cluster kernel
+    # on the Apply's own inputs (at its cluster size and at 8) and on ragged
+    # ones, the half-iteration kernel on a canvas over the cluster limit and
+    # (at group 1) on the Apply's inputs
     padded, px, py, n_iter = dec.rl_inputs(deconv_input, geometry)
     del deconv_input
-    rl_err, rl_rel = check_rl(padded, px, py, n_iter, "apply geometry")
-    ragged = {}
-    for label, inputs in ragged_rl_cases(dev, gen).items():
-        ragged[label] = check_rl(*inputs, label)
-    emit(phase="rl_kernel_vs_plain", main_shape=list(padded.shape),
-         main_max_abs_err=rl_err, main_max_rel_err=rl_rel,
-         ragged_max_abs_err={k: v[0] for k, v in ragged.items()},
-         ragged_max_rel_err={k: v[1] for k, v in ragged.items()},
-         deterministic=True,
-         tolerance=f"per band |kernel-plain| <= {_RL_REL_TOL} * max|plain|")
-    rl_ms = time_ms(lambda: rlsep.rl_bands_separable(padded, px, py, n_iter),
-                    reps=5, inner=1, warm=1)
+    rl_shape = list(padded.shape)
+    kr, kc = px.shape[1], py.shape[1]
+    s_apply = rlsep.cluster_size_for(*rl_shape[1:], kr, kc)
+    assert s_apply is not None and rlsep.cluster_fits(*rl_shape[1:], kr, kc, 8)
+    smem = rlsep._cluster_library().thz_rlsep_cluster_smem
+    ragged_inputs = ragged_rl_cases(dev, gen)
+    for shape in [rl_shape] + [list(v[0].shape) for v in ragged_inputs.values()]:
+        for s in (1, 8, 16):
+            if s <= shape[1]:
+                args_ = (shape[1], shape[2], kr, kc, s)
+                assert smem(*args_) == rlsep.cluster_smem_bytes(*args_), args_
+    rl_plain = rlsep.rl_bands_separable_plain(padded, px, py, n_iter)
+    rl_err, rl_rel = check_rl(padded, px, py, n_iter, "apply geometry", "cluster", ref=rl_plain)
+    with preferred_cluster(8):
+        assert rlsep.cluster_size_for(*rl_shape[1:], kr, kc) == 8
+        rl8_err, rl8_rel = check_rl(padded, px, py, n_iter, "apply geometry S=8", "cluster",
+                                    ref=rl_plain)
+    ragged = {label: check_rl(*inputs, label, "cluster")
+              for label, inputs in ragged_inputs.items()}
+    over = over_limit_rl_case(dev, gen)
+    assert rlsep.cluster_size_for(*over[0].shape[1:], over[1].shape[1], over[2].shape[1]) is None
+    tiled_before = rlsep.rl_bands_separable.launches_tiled
+    over_err = check_rl(*over, "over the cluster limit 720x720", "tiled")
+    over_launches = rlsep.rl_bands_separable.launches_tiled - tiled_before
+    tiled = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1)
+    tiled_err, tiled_rel = rl_errors(tiled, rl_plain, "half-iteration kernel, apply geometry")
+    cluster_out = rlsep.rl_bands_separable(padded, px, py, n_iter)
+    del rl_plain, over
+
+    def cluster_run(s):
+        def run():
+            with preferred_cluster(s):
+                rlsep.rl_bands_separable(padded, px, py, n_iter)
+        return run
+
+    def tiled_run():
+        rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1)
+
+    # in turns, in one call: cluster, half-iteration, half-iteration, cluster
+    rl_ms = [time_ms(cluster_run(s_apply), reps=5, inner=1, warm=1)]
+    tiled_ms = [time_ms(tiled_run, reps=5, inner=1, warm=1) for _ in range(2)]
+    rl_ms.append(time_ms(cluster_run(s_apply), reps=5, inner=1, warm=1))
+    rl8_ms = time_ms(cluster_run(8), reps=5, inner=1, warm=1)
     rl_plain_ms = time_ms(lambda: rlsep.rl_bands_separable_plain(padded, px, py, n_iter),
                           reps=3, inner=1, warm=1)
     rl_bound, rl_bound_by, rl_ops = rl_bound_ms(geometry, (width, height), name)
-    rl_shape = list(padded.shape)
-    sequential = rlsep.rl_bands_separable(padded, px, py, n_iter)
+    critical_ms, critical_ops = rl_critical_path_ms(geometry, (width, height), s_apply)
+    critical8_ms, _ = rl_critical_path_ms(geometry, (width, height), 8)
+    emit(phase="rl_kernel_vs_plain", main_shape=rl_shape, cluster_size=s_apply,
+         main_max_abs_err=rl_err, main_max_rel_err=rl_rel,
+         s8_max_abs_err=rl8_err, s8_max_rel_err=rl8_rel,
+         ragged_max_abs_err={k: v[0] for k, v in ragged.items()},
+         ragged_max_rel_err={k: v[1] for k, v in ragged.items()},
+         over_limit_shape=[1, 720, 720], over_limit_route="half-iteration",
+         over_limit_max_abs_err=over_err[0], over_limit_max_rel_err=over_err[1],
+         over_limit_launches=over_launches,
+         tiled_apply_max_abs_err=tiled_err, tiled_apply_max_rel_err=tiled_rel,
+         deterministic=True,
+         tolerance=f"per band |kernel-plain| <= {_RL_REL_TOL} * max|plain|",
+         cluster_ms=rl_ms, cluster_ms_s8=rl8_ms, tiled_ms=tiled_ms, plain_ms=rl_plain_ms,
+         bound_ms=rl_bound, critical_path_ms=critical_ms, critical_path_ms_s8=critical8_ms,
+         launches_per_apply=apply["rl_launches"], card=smi)
 
     # 6b. the general 2-D RL kernel: (a) the Apply's band-0 canvas with an
     # asymmetric 9x9 PSF at the band's n_iter, against the plain version;
@@ -982,8 +1108,8 @@ def main() -> int:
     for b in picks:
         psf_b = torch.outer(px[b], py[b]).contiguous()
         u_b = rl2d.richardson_lucy_direct(padded[b].contiguous(), psf_b, int(n_iter[b]))
-        err = float((u_b - sequential[b]).abs().max())
-        scale = float(sequential[b].abs().max())
+        err = float((u_b - cluster_out[b]).abs().max())
+        scale = float(cluster_out[b].abs().max())
         assert err <= _RL_REL_TOL * scale, (b, err, scale)
         outer[f"band{b}_{'fft' if use_fft[b] else 'direct'}_{tuple(psf_b.shape)}"
               f"_n{int(n_iter[b])}"] = err / scale
@@ -996,37 +1122,33 @@ def main() -> int:
          max_abs_err=rl2d_err, max_rel_err=rl2d_err / rl2d_scale, deterministic=True,
          outer_product_rel_err_vs_rlsep=outer,
          tolerance=f"|kernel-plain| <= {_RL_REL_TOL} * max|plain|; outer products vs the "
-                   f"rlsep kernel's band, the same",
+                   f"rlsep_cluster kernel's band, the same",
          kernel_ms=rl2d_ms, plain_ms=rl2d_plain_ms, bound_ms=rl2d_bound,
          bound_by=rl2d_bound_by, launches=rl2d_launches)
     del u2, again, ref2
 
-    # 6c. the grouped separable kernel: bit for bit the sequential kernel, on
-    # the Apply's RL inputs (group 5 and 1) and on the ragged cases (group 2
-    # where B is even, else group B)
+    # 6c. the grouped separable kernel: bit for bit the half-iteration kernel
+    # at group 1 (the same arithmetic), on the Apply's RL inputs (group 5)
+    # and on the ragged cases (group 2 where B is even, else group B)
     assert padded.shape[0] % 5 == 0
     rlsep.rl_bands_separable_grouped.launches = 0
     grouped = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=5)
     grouped_launches = rlsep.rl_bands_separable_grouped.launches
     torch.cuda.synchronize()
-    assert torch.equal(grouped, sequential), "group=5 differs from the sequential kernel"
+    assert torch.equal(grouped, tiled), "group=5 differs from group 1"
     assert grouped_launches == 2 * int(n_iter.max())
-    check_grouped(padded, px, py, n_iter, 1, sequential, "apply geometry")
     ragged_groups = {}
-    for label, inputs in ragged_rl_cases(dev, gen).items():
+    for label, inputs in ragged_inputs.items():
         group = 2 if inputs[0].shape[0] % 2 == 0 else inputs[0].shape[0]
-        check_grouped(*inputs, group, rlsep.rl_bands_separable(*inputs), label)
+        check_grouped(*inputs, group, rlsep.rl_bands_separable_grouped(*inputs, group=1), label)
         ragged_groups[label] = group
     grouped_ms = time_ms(
         lambda: rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=5),
         reps=5, inner=1, warm=1)
-    grouped1_ms = time_ms(
-        lambda: rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1),
-        reps=5, inner=1, warm=1)
-    emit(phase="rl_grouped_vs_sequential", shape=rl_shape, group=5, bit_identical=True,
+    emit(phase="rl_grouped_vs_group1", shape=rl_shape, group=5, bit_identical=True,
          ragged_groups=ragged_groups, kernel_ms_group5=grouped_ms,
-         kernel_ms_group1=grouped1_ms, sequential_ms=rl_ms, launches=grouped_launches)
-    del padded, px, py, sequential, grouped
+         kernel_ms_group1=tiled_ms, launches=grouped_launches)
+    del padded, px, py, tiled, cluster_out, grouped
 
     # 7. card vs CPU on a small scan: main path, Apply, downscale
     small_tmp = tempfile.TemporaryDirectory()
@@ -1110,22 +1232,49 @@ def main() -> int:
         "library_ms": None,
         "shape": [n, f, m],
     }, {
-        "name": "rlsep",
+        "name": "rlsep_cluster",
         "route": "cuda",
-        "source": "thz_image_explorer_tpu_torch/csrc/rlsep.cu",
+        "source": "thz_image_explorer_tpu_torch/csrc/rlsep_cluster.cu",
         "replaces": _RLSEP_REPLACES,
+        # the Apply path's run: two Applies, one launch per checkpoint group
         "launches": apply_launches,
+        "launches_per_apply": apply["rl_launches"],
         "max_abs_err": rl_err,
         "max_rel_err": rl_rel,
-        "ms": rl_ms,
+        "ms": statistics.median(rl_ms),
+        "ms_runs": rl_ms,
+        "ms_s8": rl8_ms,
         "plain_ms": rl_plain_ms,
         "bound_ms": rl_bound,
         "bound_by": rl_bound_by,
         "bound_operations": rl_ops,
+        "critical_path_ms": critical_ms,
+        "critical_path_operations": critical_ops,
+        "cluster_size": s_apply,
         # no single PyTorch call runs the Richardson-Lucy recurrence
         "library_ms": None,
         "shape": rl_shape,
         "n_iter_sum": geo["n_iter_sum"],
+    }, {
+        "name": "rlsep",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/rlsep.cu",
+        "replaces": _RLSEP_REPLACES,
+        # the half-iteration route takes only canvases over the cluster
+        # limit: 0 launches on the Apply path; its launches in the smoke's
+        # over-limit run (two runs of 2 per iteration)
+        "launches": over_launches,
+        "apply_launches": apply_tiled_launches,
+        "max_abs_err": tiled_err,
+        "max_rel_err": tiled_rel,
+        "over_limit_max_abs_err": over_err[0],
+        "ms": statistics.median(tiled_ms),
+        "ms_runs": tiled_ms,
+        "plain_ms": rl_plain_ms,
+        "bound_ms": rl_bound,
+        "bound_by": rl_bound_by,
+        "library_ms": None,
+        "shape": rl_shape,
     }, {
         "name": "envelope",
         "route": "cuda",

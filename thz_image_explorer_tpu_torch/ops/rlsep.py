@@ -1,5 +1,5 @@
 """Separable Richardson-Lucy over a stack of bands: the wrapper of
-``csrc/rlsep.cu``.
+``csrc/rlsep_cluster.cu`` and ``csrc/rlsep.cu``.
 
 Port of ``thz_image_explorer_tpu/ops/pallas_rl.py:rl_bands_separable``.
 For every band ``b``, ``n_iter[b]`` times::
@@ -15,15 +15,29 @@ axis 0 and ``py`` along axis 1. The JAX kernel takes the dense ``R``, ``C``
 Profiles of bands that take FFT-convolution semantics arrive already
 flipped (``ops/deconvolution.py``).
 
-On a CUDA tensor :func:`rl_bands_separable` launches the CUDA kernel (two
-launches per iteration, each over every band still iterating) or raises;
-on a CPU tensor it runs :func:`rl_bands_separable_plain`, the same function
-as dense banded matmuls in plain PyTorch (f32; TF32 is off).
+On a CPU tensor :func:`rl_bands_separable` runs
+:func:`rl_bands_separable_plain`, the same function as dense banded matmuls
+in plain PyTorch (f32; TF32 is off). On a CUDA tensor it launches one of
+two kernels, chosen from the shapes alone before any launch
+(:func:`cluster_size_for`):
 
-:func:`rl_bands_separable_grouped` is the same function with ``group``
-bands per kernel block (port of ``pallas_rl.py:rl_bands_separable_grouped``,
-the JAX package's G-band interleave): on the card its output equals
-:func:`rl_bands_separable`'s bit for bit. No production path calls it.
+- the cluster route, ``csrc/rlsep_cluster.cu``: each band's estimate is
+  held in the shared memory of a thread-block cluster of ``S`` CTAs
+  (:func:`cluster_rows` splits its rows) and one launch runs a whole host
+  checkpoint group (:func:`launch_schedule`), counted by
+  ``rl_bands_separable.launches``;
+- the tiled route, ``csrc/rlsep.cu``, for a canvas whose estimate and
+  scratch do not fit 16 CTAs' shared memory: two launches per iteration,
+  counted by ``rl_bands_separable.launches_tiled``.
+
+A refused launch raises; nothing falls back to the other route or to the
+plain version.
+
+:func:`rl_bands_separable_grouped` is the same function on the tiled
+kernel with ``group`` bands per kernel block (port of
+``pallas_rl.py:rl_bands_separable_grouped``, the JAX package's G-band
+interleave): on the card its output at every group size equals its output
+at group 1 bit for bit. No production path calls it.
 
 Both :func:`rl_bands_separable` and the plain version take
 ``between(done, total) -> bool``, called on the host before each
@@ -45,6 +59,17 @@ from thz_image_explorer_tpu_torch import kernels
 _EPS = 1e-12
 #: iterations between two host checkpoints
 GROUP = 50
+#: shared memory one CTA may use on Hopper (227 KB)
+SMEM_PER_BLOCK = 232_448
+#: the largest thread-block cluster the cluster route launches
+MAX_CLUSTER = 16
+#: the cluster size the cluster route takes where it fits (measured against
+#: 8 at the reference Apply; PERF.md)
+PREFERRED_CLUSTER = 16
+# csrc/rlsep_cluster.cu's strip height, rows per pass and axis-1 block
+# (kSR, kPass, kCB) and its static shared memory (reach[2])
+_SR, _PASS, _CB = 8, 16, 8
+_STATIC_SMEM = 8
 
 Between = Optional[Callable[[int, int], bool]]
 
@@ -79,6 +104,71 @@ def _groups(max_iter: int) -> list[tuple[int, int]]:
     if max_iter == 0:
         return [(0, 0)]
     return [(i, min(i + GROUP, max_iter)) for i in range(0, max_iter, GROUP)]
+
+
+def launch_schedule(n_iter) -> list[tuple[int, int, int]]:
+    """The cluster route's launches: ``(i0, i1, nb)`` per non-empty host
+    checkpoint group, running iterations ``i0 .. i1 - 1`` of the ``nb``
+    bands with ``n_iter > i0``, each band stopping at
+    ``min(i1, n_iter[b])``."""
+    n_iter = np.asarray(n_iter)
+    return [(i0, i1, int((n_iter > i0).sum()))
+            for i0, i1 in _groups(int(n_iter.max(initial=0))) if i1 > i0]
+
+
+def cluster_rows(h2: int, s: int, reach: int) -> list[tuple[int, int, int, int]]:
+    """The rows of each CTA of an ``s``-CTA cluster on an ``h2``-row canvas,
+    as ``csrc/rlsep_cluster.cu`` splits them: ``(lo, hi, q_lo, q_hi)`` per
+    rank, the CTA owning rows ``lo .. hi - 1`` (the first ``h2 % s`` ranks
+    one row more) and its axis-0 halo of ``reach`` rows lying in the slabs of
+    ranks ``q_lo .. q_hi``."""
+    if not 1 <= s <= h2:
+        raise ValueError(f"cluster size {s} outside 1..{h2}")
+    base, rem = divmod(h2, s)
+    spans = [(q * base + min(q, rem), (q + 1) * base + min(q + 1, rem)) for q in range(s)]
+
+    def owner(j):
+        return next(q for q, (lo, hi) in enumerate(spans) if lo <= j < hi)
+
+    return [(lo, hi, owner(max(lo - reach, 0)), owner(min(hi - 1 + reach, h2 - 1)))
+            for lo, hi in spans]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cluster_smem_bytes(h2: int, w2: int, kr: int, kc: int, s: int) -> int:
+    """Shared memory of one CTA of the cluster route (``layout`` in
+    ``csrc/rlsep_cluster.cu``, plus its static bytes): the u and rel slabs of
+    ``ceil(h2 / s)`` rows, the strip, the taps and the halo window's row
+    tables. ``thz_rlsep_cluster_smem`` of the built library returns the
+    same."""
+    rows = -(-h2 // s)
+    ws = w2 + (1 - w2) % 32
+    hr, hc = kr // 2, kc // 2
+    nwin = rows + 2 * hr + 3 * _SR
+    taps = 2 * _round_up(2 * hr + 3 * _SR, 4) + 2 * _round_up(2 * hc + 3 * _CB, 4)
+    strip = (2 * hc + w2 + 2 * _CB) * (_PASS + 1)
+    floats = taps + 2 * rows * ws + strip + ws
+    return 2 * nwin * 8 + 4 * floats + _STATIC_SMEM
+
+
+def cluster_fits(h2: int, w2: int, kr: int, kc: int, s: int) -> bool:
+    return 1 <= s <= min(h2, MAX_CLUSTER) and \
+        cluster_smem_bytes(h2, w2, kr, kc, s) <= SMEM_PER_BLOCK
+
+
+def cluster_size_for(h2: int, w2: int, kr: int, kc: int) -> Optional[int]:
+    """The routing rule, from the shapes alone: the cluster size of the
+    cluster route, :data:`PREFERRED_CLUSTER` or, where the estimate needs
+    more CTAs, the smallest size that holds it (never above the canvas's
+    rows); None when not even :data:`MAX_CLUSTER` CTAs hold it, and the
+    tiled route runs."""
+    for s in range(1, MAX_CLUSTER + 1):
+        if cluster_fits(h2, w2, kr, kc, s):
+            return max(s, min(PREFERRED_CLUSTER, h2))
+    return None
 
 
 def banded_matrix(prof: torch.Tensor, size: int) -> torch.Tensor:
@@ -120,26 +210,38 @@ def rl_bands_separable(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     """Every band's Richardson-Lucy recurrence: ``padded`` (B, h2, w2) f32,
     ``px`` (B, kr) and ``py`` (B, kc) f32 profiles on the same device,
     ``n_iter`` a host int array (B,). Returns ``u`` (B, h2, w2), or None
-    when ``between`` stopped the run. ``rl_bands_separable.launches``
-    counts kernel launches (two per iteration)."""
+    when ``between`` stopped the run.
+
+    On a CUDA tensor the route follows from the shapes: the cluster kernel
+    at :func:`cluster_size_for` CTAs per band, one launch per non-empty
+    checkpoint group, counted by ``rl_bands_separable.launches``; or, where
+    no cluster holds the canvas, the tiled kernel, two launches per
+    iteration, counted by ``rl_bands_separable.launches_tiled``."""
     n_iter = _check(padded, px, py, n_iter)
     if padded.device.type == "cpu":
         return rl_bands_separable_plain(padded, px, py, n_iter, between=between)
     if padded.device.type != "cuda":
         raise ValueError(f"no Richardson-Lucy kernel for device {padded.device}")
-    # the kernel reads its shared-memory limit on, and launches on, the
+    _, h2, w2 = padded.shape
+    s = cluster_size_for(h2, w2, px.shape[1], py.shape[1])
+    # the kernels read their shared-memory limit on, and launch on, the
     # current device: make it padded's
     with torch.cuda.device(padded.device):
-        return _run_kernel(padded, px, py, n_iter, between)
+        if s is None:
+            return _run_kernel(padded, px, py, n_iter, between, counter=rl_bands_separable,
+                               attr="launches_tiled")
+        return _run_cluster(padded, px, py, n_iter, between, s)
 
 
 rl_bands_separable.launches = 0
+rl_bands_separable.launches_tiled = 0
 
 
 def rl_bands_separable_grouped(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
                                n_iter, *, group: int = 2) -> torch.Tensor:
-    """:func:`rl_bands_separable` with ``group`` bands per kernel block: the
-    same operands and result, ``B % group == 0``. On a CPU tensor it runs
+    """The tiled kernel with ``group`` bands per kernel block: the same
+    operands and function as :func:`rl_bands_separable`, ``B % group == 0``;
+    group 1 is the tiled route's own launch. On a CPU tensor it runs
     :func:`rl_bands_separable_plain`. ``rl_bands_separable_grouped.launches``
     counts its kernel launches (two per iteration)."""
     n_iter = _check(padded, px, py, n_iter)
@@ -166,8 +268,45 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _cluster_library() -> ctypes.CDLL:
+    lib = kernels.load("rlsep_cluster")
+    fn = lib.thz_rlsep_cluster
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.thz_rlsep_cluster_smem.argtypes = [ctypes.c_int] * 5
+        lib.thz_rlsep_cluster_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def _run_cluster(padded, px, py, n_iter, between: Between, s: int):
+    lib = _cluster_library()
+    b, h2, w2 = padded.shape
+    # bands by descending trip count: a launch from i0 runs the first nb
+    order = torch.as_tensor(np.argsort(-n_iter, kind="stable").astype(np.int32),
+                            device=padded.device)
+    n_iter_dev = torch.as_tensor(n_iter.astype(np.int32), device=padded.device)
+    u = padded.clone()
+    stream = torch.cuda.current_stream(padded.device).cuda_stream
+    spans = _groups(int(n_iter.max(initial=0)))
+    for g, (i0, i1) in enumerate(spans):
+        if between is not None and between(g, len(spans)):
+            return None
+        nb = int((n_iter > i0).sum())
+        if nb == 0:
+            continue
+        err = lib.thz_rlsep_cluster(
+            u.data_ptr(), padded.data_ptr(), px.data_ptr(), py.data_ptr(), order.data_ptr(),
+            n_iter_dev.data_ptr(), nb, i0, i1, b, h2, w2, px.shape[1], py.shape[1], s, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"rlsep_cluster kernel launch failed: CUDA error {err}")
+        rl_bands_separable.launches += 1
+    return u
+
+
 def _run_kernel(padded, px, py, n_iter, between: Between, *, group: int = 1,
-                counter=rl_bands_separable):
+                counter, attr: str = "launches"):
     lib = _library()
     b, h2, w2 = padded.shape
     max_iter = int(n_iter.max(initial=0))
@@ -194,5 +333,5 @@ def _run_kernel(padded, px, py, n_iter, between: Between, *, group: int = 1,
         )
         if err != 0:
             raise RuntimeError(f"rlsep kernel launch failed: CUDA error {err}")
-        counter.launches += 2 * (i1 - i0)
+        setattr(counter, attr, getattr(counter, attr) + 2 * (i1 - i0))
     return u
