@@ -36,6 +36,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -50,6 +51,11 @@ _RLSEP_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:140"
 _ENVELOPE_REPLACES = "thz_image_explorer_tpu/ops/voxel.py:213"
 _RL2D_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:61"
 _RLSEP_GROUPED_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:157"
+#: why the kernels line has no previous-design time for the two kernels
+#: redesigned in place: the smoke builds only the checkout's sources
+_PREVIOUS_DESIGN = ("the smoke builds only this checkout's sources; "
+                    "scripts/torch_envelope_specred_sweep.py times the previous design "
+                    "(commit dea24f1) in one call with this one, PERF.md section 6")
 #: the SMs of an H100 SXM, for the cluster kernel's critical-path floor
 _SMS = 132
 #: kernel vs plain Richardson-Lucy, per band: |kernel - plain| <= this *
@@ -108,6 +114,127 @@ def time_ms(fn, reps=21, inner=10, warm=3):
     return statistics.median(samples)
 
 
+#: cycles the stream spins (torch.cuda._sleep) before timed calls, longer
+#: than the host needs to queue them (~2 ms at the H100's clock)
+_HOLD_CYCLES = 4_000_000
+
+
+def device_ms(fn, reps=11, inner=10, warm=3):
+    """The kernels' own device time per call: median over ``reps`` of the
+    mean of ``inner`` calls queued behind a ``torch.cuda._sleep`` spin, so
+    the CUDA events time the device work and not the wrappers' host work
+    (checks, allocation, the ctypes call)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    samples = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(_HOLD_CYCLES)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        samples.append(a.elapsed_time(b) / inner)
+    return statistics.median(samples)
+
+
+# ------------------------------------------------------- the issue floor
+def sass_text(so_path):
+    """``cuobjdump -sass`` of the library at ``so_path``."""
+    from thz_image_explorer_tpu_torch import kernels
+
+    cuobjdump = Path(kernels._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def sass_loops(so_path, kernel_key):
+    """The innermost loops of the kernel whose mangled name holds
+    ``kernel_key`` in the library at ``so_path``, from ``cuobjdump -sass``:
+    one ``collections.Counter`` of opcodes per loop body (a backward branch
+    to a label and the instructions from the label to it)."""
+    import collections
+    import re
+
+    body = next(part for part in sass_text(so_path).split("Function : ")[1:]
+                if part.split(None, 1)[0].find(kernel_key) >= 0)
+    ops, at, loops = [], {}, []
+    for line in body.splitlines():
+        ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not ins:
+            continue
+        addr = int(ins.group(1), 16)
+        words = ins.group(2).split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        at[addr] = len(ops)
+        ops.append(op)
+        target = re.search(r"BRA(?:\.\S+)?\s+(?:!?U?P\d,\s*)?0x([0-9a-f]+)", ins.group(2))
+        if op.startswith("BRA") and target and int(target.group(1), 16) <= addr:
+            loops.append((at[int(target.group(1), 16)], len(ops)))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    return [collections.Counter(ops[a:b]) for a, b in inner]
+
+
+def sm_clock_hz():
+    """The SMs' maximum clock (nvidia-smi ``clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def issue_floor_ms(per_element, elements, clock_hz, sms=_SMS):
+    """The least time to issue ``per_element`` thread instructions for each
+    of ``elements`` elements: 32 lanes a warp instruction, one warp
+    instruction a clock on each of an SM's 4 schedulers."""
+    return per_element * elements / 32 / (sms * 4 * clock_hz) * 1e3
+
+
+def envelope_instructions(so_path, radius):
+    """SASS instructions per sample of the envelope kernel's bulk route at
+    contrast 2 (``envelope_kernel<radius>``), from its three loops in
+    shared memory, each loop's instructions divided by the samples it
+    takes, told by its arithmetic: the square (``FMUL`` alone, two a
+    sample), the correlation runs (``2 radius + 1`` ``FFMA`` a sample,
+    read as float4s) and the normalization (one ``MUFU.RCP`` a sample: the
+    IEEE division; no ``FMUL``, which tells it from the powf loop). A
+    static count: a branch a loop body holds counts whether taken or not,
+    and the division's slow-path subroutine is not counted."""
+    taps = 2 * radius + 1
+    total = 0.0
+    for c in sass_loops(so_path, f"envelope_kernelILi{radius}E"):
+        n = sum(c.values())
+        if not c["STS.128"] and not c["LDS.128"] or c["STG.E"]:
+            continue
+        if c["FMUL"] and not (c["FFMA"] or c["MUFU.RCP"]):
+            total += n / (c["FMUL"] / 2)
+        elif c["FFMA"] >= taps and not (c["MUFU.RCP"] or c["FMUL"]):
+            total += n / (c["FFMA"] / taps)
+        elif c["MUFU.RCP"] and not c["FMUL"]:
+            total += n / c["MUFU.RCP"]
+    return total
+
+
+def specred_instructions(so_path, m):
+    """SASS instructions per element of ``specred_kernel<m, false>``: the
+    element loop (the one that takes a square root, MUFU.RSQ; one element
+    per 64-bit shared store) and the column loop (2 m FFMA per row). A
+    static count, as above: the slow paths of the accurate atan2f and
+    sqrtf count too."""
+    total = 0.0
+    for loop in sass_loops(so_path, f"specred_kernelILi{m}ELb0E"):
+        if loop["MUFU.RSQ"] and loop["STS.64"]:
+            total += sum(loop.values()) / loop["STS.64"]
+        elif loop["FFMA"] >= 2 * m:
+            total += sum(loop.values()) / (loop["FFMA"] // (2 * m))
+    return total
+
+
 # ---------------------------------------------------------------- phase 3
 def abs_term_sums(spec, masks, with_complex):
     """Per output and column, sum_n |mask * term|: the scale of each sum
@@ -153,8 +280,58 @@ def check_specred(spec, masks, with_complex, label):
     return max_abs, max_rel
 
 
+#: ragged spectral-reduction shapes (N, F, M): ragged F; N no multiple of a
+#: tile, odd (a last row read with plain loads) and 1; M = 1, 16 and 21
+#: masks (two launches: 16 + 5); F over one block's columns (2 and 4 column
+#: chunks); F too wide for whole rows in a block (the wide route: 16 384-
+#: sample traces, and 820 column chunks, more than the card's resident
+#: blocks, which then take several items each)
+SPECRED_EDGE_SHAPES = ((1009, 33, 1), (4099, 129, 16), (2053, 1025, 3), (3001, 513, 21),
+                       (40_001, 513, 5), (1, 513, 2), (7, 2049, 4), (2, 17, 16),
+                       (3001, 8193, 5), (3, 524_289, 2))
+
+
+def specred_kernel_count(spec, masks):
+    """CUDA kernels one call of the spectral reduction launches, by name,
+    from the profiler (the call's ticket counters exist already)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sr.spectral_reduction_sums(spec, masks, False)
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def check_specred_plan(n, f, m):
+    """The plan the launches of this shape were given (each group of at most
+    16 masks) is ops/specred.py's own, at the library's compiled shape,
+    which is the module's; the library's layout gives it the same shared
+    memory."""
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+
+    lib = sr._library()
+    assert sr.library_config(lib) == dict(rows=sr.ROWS, stages=sr.STAGES,
+                                          max_cols=sr.MAX_COLS,
+                                          smem_per_block=sr.SMEM_PER_BLOCK)
+    for g in range(0, m, sr.MAX_MASKS):
+        mg = min(sr.MAX_MASKS, m - g)
+        got = sr.kernel_plan(n, f, mg, False)
+        want = sr.plan(n, f, mg, got["blocks_possible"])
+        assert all(got[k] == v for k, v in want.items()), (n, f, mg, got, want)
+        args = (f, got["cw"], mg, got["rows"], got["stages"], int(got["wide"]))
+        assert lib.thz_specred_smem(*args) == sr.layout_bytes(*args) == got["smem"], args
+    return {k: v for k, v in got.items() if k != "args"}
+
+
 def phase_kernel_checks(pulse_spec, masks5, gen):
     import torch
+
+    from thz_image_explorer_tpu_torch.ops import specred as sr
 
     dev = pulse_spec.device
     n, f = pulse_spec.shape
@@ -163,21 +340,59 @@ def phase_kernel_checks(pulse_spec, masks5, gen):
     for spec_name, spec in (("pulse", pulse_spec), ("random", rand_spec)):
         for wc in (False, True):
             main[(spec_name, wc)] = check_specred(spec, masks5, wc, f"{spec_name} wc={wc}")
-    ragged = []
-    # ragged F; N not a multiple of any chunk; M = 1, 16, and 21 masks
-    # (two launches: 16 + 5)
-    for nn, ff, mm in ((1009, 33, 1), (4099, 129, 16), (2053, 1025, 3), (3001, 513, 21)):
+    # one kernel per call of at most 16 masks, and no second kernel
+    launched = specred_kernel_count(pulse_spec, masks5)
+    assert len(launched) == 1 and list(launched.values()) == [1], launched
+    ragged, routes = [], {}
+    for nn, ff, mm in SPECRED_EDGE_SHAPES:
         spec = torch.randn((nn, ff), dtype=torch.complex64, device=dev, generator=gen)
         m = (torch.rand((mm, nn), device=dev, generator=gen) > 0.5).float()
+        before = sr.spectral_reduction_sums.launches
         for wc in (False, True):
             check_specred(spec, m, wc, f"n={nn} f={ff} m={mm} wc={wc}")
+        assert sr.spectral_reduction_sums.launches - before == 2 * -(-mm // sr.MAX_MASKS) * 2
+        p = check_specred_plan(nn, ff, mm)
+        routes[f"{nn}x{ff}x{mm}"] = dict(wide=p["wide"], chunks=p["chunks"], grid=p["grid"],
+                                         items=p["ranges"] * p["chunks"])
         ragged.append([nn, ff, mm])
+    assert routes["3001x8193x5"]["wide"] and not routes["40001x513x5"]["wide"]
+    assert routes["3x524289x2"]["items"] > routes["3x524289x2"]["grid"]
+    # two streams at once: small grids that can run side by side, each
+    # with its own barrier counters
+    spec = torch.randn((1009, 33), dtype=torch.complex64, device=dev, generator=gen)
+    m = (torch.rand((3, 1009), device=dev, generator=gen) > 0.5).float()
+    ref = sr.spectral_reduction_sums_plain(spec, m, False)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    for _ in range(20):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            on_side = sr.spectral_reduction_sums(spec, m, False)
+        on_main = sr.spectral_reduction_sums(spec, m, False)
+        torch.cuda.current_stream().wait_stream(side)
+        for g, g2, r in zip(on_side[:2], on_main[:2], ref[:2]):
+            assert torch.equal(g, g2) and bool(((g - r).abs() <= 1e-4 * r.abs().amax()
+                                                + 1e-6).all())
+    torch.cuda.synchronize()
+    # a spectrum whose pointer is 8 bytes off a 16-byte boundary: the plain
+    # route, chosen from the pointer before the launch
+    whole = torch.randn(((3001 * 513) + 1,), dtype=torch.complex64, device=dev, generator=gen)
+    shifted = whole[1:].view(3001, 513)
+    assert shifted.data_ptr() % 16 == 8
+    m = (torch.rand((5, 3001), device=dev, generator=gen) > 0.5).float()
+    for wc in (False, True):
+        check_specred(shifted, m, wc, f"8-byte aligned spectrum wc={wc}")
+    ragged.append([3001, 513, 5, "8-byte aligned"])
     emit(
         phase="kernel_vs_plain",
         main_shape=[n, f, int(masks5.shape[0])],
         max_abs_err={f"{k[0]}/wc={k[1]}": v[0] for k, v in main.items()},
         max_rel_err={f"{k[0]}/wc={k[1]}": v[1] for k, v in main.items()},
         ragged_shapes=ragged,
+        ragged_routes=routes,
+        two_streams="20 pairs of launches on two streams, bit-identical, within 1e-4*max",
+        kernels_per_call=launched,
+        plan=check_specred_plan(n, f, int(masks5.shape[0])),
         deterministic=True,
         tolerance="per column |kernel-plain| <= 1e-5*sum|terms| + 1e-6",
     )
@@ -653,22 +868,32 @@ def check_envelope(flat, taps, contrast, thr, label):
 
 
 def ragged_envelope_cases(dev, gen):
-    """Envelope inputs the main path does not give: T = 1000, r = 0 and
-    r = 40, asymmetric taps, contrast 0 with all-zero traces, taps longer
-    than the trace, and N no multiple of the block's 8 traces."""
+    """Envelope inputs the main path does not give: T = 1000 and 4096, r = 0,
+    12 (the largest radius with taps in registers), 13 and 40 (taps in
+    shared memory), asymmetric taps, contrast 0 with all-zero traces and
+    1.3 (powf) on both routes, taps longer than the trace, T = 777 (no
+    multiple of 4: the plain route), N no multiple of a block's warps and
+    fewer traces than one block's warps, a 29 000-sample trace (one warp
+    with one buffer of each kind), the longest traces the previous kernel
+    took at r = 9 and 0 and a longer one (no output buffer: the envelope
+    goes through the output row), and traces 4 bytes off a 16-byte
+    boundary (the plain route, chosen from the pointer)."""
     import torch
 
     from thz_image_explorer_tpu_torch.ops.voxel import gaussian_kernel1d
 
-    def traces(n, t):
+    def traces(n, t, offset=0):
         amp = 0.2 + 1.3 * torch.rand((n, 1), device=dev, generator=gen)
-        return (torch.randn((n, t), device=dev, generator=gen) * amp).contiguous()
+        x = torch.randn((n * t + offset,), device=dev, generator=gen)[offset:].view(n, t)
+        return (x * amp) if offset == 0 else x.mul_(amp)
 
     def asym(k):
         return (0.05 + torch.rand(k, generator=torch.Generator().manual_seed(k))).numpy()
 
     zeros = traces(301, 512)
     zeros[::7] = 0.0
+    shifted = traces(517, 1024, offset=1)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
     return {
         # name: (flat, taps, contrast, thr)
         "t1000_n1003_gauss_r9": (traces(1003, 1000), gaussian_kernel1d(3.0, 9), 2.0, 0.1),
@@ -677,7 +902,34 @@ def ragged_envelope_cases(dev, gen):
         "t777_n1001_asym_r5_c1.3": (traces(1001, 777), asym(11), 1.3, 0.4),
         "t512_n301_c0_zero_traces": (zeros, asym(7), 0.0, 0.01),
         "t20_n64_taps_longer_r30": (traces(64, 20), asym(61), 2.0, 1.0),
+        "t4096_n301_gauss_r9": (traces(301, 4096), gaussian_kernel1d(3.0, 9), 2.0, 0.1),
+        "t1024_n513_asym_r12_c1.3": (traces(513, 1024), asym(25), 1.3, 0.5),
+        "t1024_n257_asym_r13": (traces(257, 1024), asym(27), 2.0, 1.0),
+        "t16_n3_r0": (traces(3, 16), np.array([1.1], np.float32), 2.0, 0.2),
+        "t29000_n5_gauss_r9": (traces(5, 29_000), gaussian_kernel1d(3.0, 9), 2.0, 0.1),
+        "t29037_n3_gauss_r9": (traces(3, 29_037), gaussian_kernel1d(3.0, 9), 2.0, 0.1),
+        "t29055_n2_r0": (traces(2, 29_055), np.array([0.7], np.float32), 2.0, 0.1),
+        "t40000_n3_gauss_r9": (traces(3, 40_000), gaussian_kernel1d(3.0, 9), 2.0, 0.1),
+        "t1024_n517_4_byte_offset_r9": (shifted, gaussian_kernel1d(3.0, 9), 2.0, 0.1),
     }
+
+
+def check_envelope_plan(n, t, r):
+    """The plan the launches of this shape were given is ops/envelope.py's
+    own, at the library's compiled shape, which is the module's; the
+    library's layout gives it the same shared memory."""
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+
+    lib = env._library()
+    assert env.library_config(lib) == dict(warps=env.WARPS, stages=env.STAGES, run=env.RUN,
+                                           max_r=env.MAX_R, smem_per_block=env.SMEM_PER_BLOCK)
+    got = env.kernel_plan(n, t, r)
+    want = env.plan(t, r)
+    assert all(got[k] == v for k, v in want.items()), (n, t, r, got, want)
+    args = (got["warps"], got["stages"], got["outs"], t, r)
+    assert lib.thz_envelope_smem(*args) == env.layout_bytes(*args) == got["smem"], args
+    assert got["blocks"] == env.blocks(n, got["warps"], got["blocks_possible"])
+    return got
 
 
 def view_args(ex):
@@ -710,6 +962,18 @@ def live_view(ex):
 
     data, kw = view_args(ex)
     return timed(lambda: voxel.extract_instances_topk(data, max_points=_VIEW_MAX_POINTS, **kw))
+
+
+def specred_bound_ms(n, f, m, name):
+    """Bytes: the spectrum and the masks read once, the amp and increment
+    sums written once. Operations per element: amp 4 (2 mul, add, sqrt),
+    angle 2 (atan2, the wrapped difference), 2 outputs x m masks x one FMA
+    (2 operations)."""
+    n_bytes = n * f * 8 + m * n * 4 + 2 * m * f * 4
+    n_ops = n * f * (4 + 2 + 2 * 2 * m)
+    bytes_ms = n_bytes / memory_rate(name) * 1e3
+    ops_ms = n_ops / _F32_PEAK * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def envelope_bound_ms(n, t, r, name):
@@ -943,9 +1207,15 @@ def main() -> int:
     env_flat = final.reshape(-1, final.shape[-1])
     env_shape = list(env_flat.shape)
     env_err, env_edges = check_envelope(env_flat, env_taps, *env_args, "main cube")
-    ragged_env = {label: check_envelope(*case, label)
-                  for label, case in ragged_envelope_cases(dev, gen).items()}
-    env_ms = time_ms(lambda: env.envelope(env_flat, env_taps, *env_args))
+    env_plan = check_envelope_plan(*env_flat.shape, int(v3["kernel_radius"]))
+    ragged_env, env_routes = {}, {}
+    for label, case in ragged_envelope_cases(dev, gen).items():
+        ragged_env[label] = check_envelope(*case, label)
+        p = check_envelope_plan(*case[0].shape, len(case[1]) // 2)
+        env_routes[label] = [p["route"], p["radius"], p["warps"], p["stages"], p["outs"]]
+    assert env_routes["t40000_n3_gauss_r9"][4] == 0 and env_routes["t29055_n2_r0"][4] == 0
+    env_ms = device_ms(lambda: env.envelope(env_flat, env_taps, *env_args))
+    env_wrapper_ms = time_ms(lambda: env.envelope(env_flat, env_taps, *env_args))
     env_plain_ms = time_ms(lambda: env.envelope_plain(env_flat, env_taps, *env_args),
                            reps=5, inner=1)
     env_bound, env_bound_by = envelope_bound_ms(*env_flat.shape, int(v3["kernel_radius"]),
@@ -954,10 +1224,13 @@ def main() -> int:
          main_max_abs_err=env_err, main_edge_traces=env_edges,
          ragged_max_abs_err={k: v[0] for k, v in ragged_env.items()},
          ragged_edge_traces={k: v[1] for k, v in ragged_env.items()},
+         ragged_routes=env_routes,
          deterministic=True,
          tolerance=f"|kernel-plain| <= {_ENV_TOL} on every trace off the normalization "
                    f"edges (max or range within {_ENV_EDGE} relative of thr or 1e-6)",
-         kernel_ms=env_ms, plain_ms=env_plain_ms, bound_ms=env_bound, bound_by=env_bound_by)
+         plan=env_plan, kernel_ms=env_ms, timing="device time behind a spin (device_ms)",
+         wrapper_ms=env_wrapper_ms, plain_ms=env_plain_ms,
+         bound_ms=env_bound, bound_by=env_bound_by)
 
     # 4c. the 3-D view on the main path's Explorer: the live view as web.py
     # serves it (packed fetch), then one dense extraction (the VTU export's)
@@ -1163,16 +1436,26 @@ def main() -> int:
          tolerance_apply="atol = 1e-3 * max|series|", tolerance="atol=5e-5, rtol=1e-4",
          max_abs_diff_apply=worst_apply, max_abs_diff=worst)
 
-    # 8 (measured here, on the main path's own inputs). kernel vs plain time
-    kernel_ms = time_ms(lambda: sr.spectral_reduction_sums(main_spec, main_masks, False))
+    # 8 (measured here, on the main path's own inputs). kernel vs plain time:
+    # the kernel's device time (behind a spin, twice), the wrapper's back to
+    # back, and the issue floors
+    kernel_ms = device_ms(lambda: sr.spectral_reduction_sums(main_spec, main_masks, False))
+    wrapper_ms = time_ms(lambda: sr.spectral_reduction_sums(main_spec, main_masks, False))
     plain_ms = time_ms(lambda: sr.spectral_reduction_sums_plain(main_spec, main_masks, False))
+    kernel_again_ms = device_ms(lambda: sr.spectral_reduction_sums(main_spec, main_masks, False))
     m = int(main_masks.shape[0])
-    n_bytes = n * f * 8 + m * n * 4 + 2 * m * f * 4
-    # amp: 2 mul + add + sqrt; angle: atan2 + wrapped diff; 2 outputs x m
-    # masks x one FMA (2 operations)
-    n_ops = n * f * (4 + 2 + 2 * 2 * m)
-    bytes_ms = n_bytes / memory_rate(name) * 1e3
-    ops_ms = n_ops / _F32_PEAK * 1e3
+    bound, bound_by = specred_bound_ms(n, f, m, name)
+    clock = sm_clock_hz()
+    sr_per_element = specred_instructions(kernels.library_path("specred"), m)
+    env_per_sample = envelope_instructions(kernels.library_path("envelope"),
+                                           int(v3["kernel_radius"]))
+    sr_floor = issue_floor_ms(sr_per_element, n * f, clock)
+    env_floor = issue_floor_ms(env_per_sample, env_flat.numel(), clock)
+    emit(phase="specred_timing", card=smi, shape=[n, f, m], kernel_ms=[kernel_ms, kernel_again_ms],
+         wrapper_ms=wrapper_ms,
+         plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, sm_clock_hz=clock,
+         sass_per_element=sr_per_element, issue_floor_ms=sr_floor,
+         envelope_sass_per_sample=env_per_sample, envelope_issue_floor_ms=env_floor)
     del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks, final, env_flat, canvas
     torch.cuda.empty_cache()
 
@@ -1212,7 +1495,23 @@ def main() -> int:
          view_threshold=scale_view[5],
          view_memory_allocated_before=resident,
          view_max_memory_allocated=torch.cuda.max_memory_allocated())
-    del ex5, cube5
+    # both redesigned kernels on this scan's own inputs
+    n5 = 512 * 512
+    spec5 = ex5.pipeline.slots[ex5.pipeline.fft_index].fft.reshape(n5, f)
+    masks5_512 = torch.cat([torch.ones((1, n5), device=dev), ex5._mask_stack.reshape(-1, n5)])
+    flat5 = ex5.pipeline.output.data.reshape(n5, -1)
+    v35 = ex5.view3d
+    taps5 = voxel.gaussian_kernel1d(v35["kernel_sigma"], v35["kernel_radius"])
+    args5 = (float(v35["contrast"]), float(v35["opacity_threshold"]))
+    sr_ms_512 = device_ms(lambda: sr.spectral_reduction_sums(spec5, masks5_512, False), inner=5)
+    env_ms_512 = device_ms(lambda: env.envelope(flat5, taps5, *args5), inner=5)
+    sr_bound_512, _ = specred_bound_ms(n5, f, int(masks5_512.shape[0]), name)
+    env_bound_512, _ = envelope_bound_ms(*flat5.shape, int(v35["kernel_radius"]), name)
+    emit(phase="scale_kernels", shape=[512, 512, 1024], card=smi,
+         specred_ms=sr_ms_512, specred_bound_ms=sr_bound_512, envelope_ms=env_ms_512,
+         envelope_bound_ms=env_bound_512,
+         timing="device time behind a spin (device_ms)")
+    del ex5, cube5, spec5, masks5_512, flat5
     torch.cuda.empty_cache()
 
     # 10. the kernels line
@@ -1224,11 +1523,20 @@ def main() -> int:
         "launches": main_launches,
         "max_abs_err": max_abs_err,
         "max_rel_err": max_rel_err,
+        # the kernel's device time behind a spin; the wrapper's back to back
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
+        "ms_runs": [kernel_ms, kernel_again_ms],
+        "wrapper_ms": wrapper_ms,
+        "ms_previous_design": None,
+        "previous_design_missing": _PREVIOUS_DESIGN,
+        "ms_512": sr_ms_512,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "bound_ms_512": sr_bound_512,
+        "issue_floor_ms": sr_floor,
+        "sass_per_element": sr_per_element,
+        "kernels_per_call": 1,
         "library_ms": None,
         "shape": [n, f, m],
     }, {
@@ -1283,9 +1591,16 @@ def main() -> int:
         "launches": view_launches,
         "max_abs_err": env_err,
         "ms": env_ms,
+        "wrapper_ms": env_wrapper_ms,
+        "ms_previous_design": None,
+        "previous_design_missing": _PREVIOUS_DESIGN,
+        "ms_512": env_ms_512,
         "plain_ms": env_plain_ms,
         "bound_ms": env_bound,
         "bound_by": env_bound_by,
+        "bound_ms_512": env_bound_512,
+        "issue_floor_ms": env_floor,
+        "sass_per_sample": env_per_sample,
         # no single PyTorch call computes the power, correlation and
         # per-trace normalization
         "library_ms": None,

@@ -10,15 +10,24 @@ the valid region, rows 1.. are ROIs; the caller divides by the mask counts
 and finishes the phase means with a cumsum.
 
 On a CUDA tensor :func:`spectral_reduction_sums` launches the CUDA kernel
-(one launch per group of at most 16 masks) or raises; on a CPU tensor it
-runs :func:`spectral_reduction_sums_plain`, the same function written in
-plain PyTorch.
+(one launch per group of at most 16 masks, no second kernel) or raises; on
+a CPU tensor it runs :func:`spectral_reduction_sums_plain`, the same
+function written in plain PyTorch; on any other device it raises.
+
+The kernel's work plan is made here, in pure Python, and handed to the
+launch: :func:`shape` (column chunks, tile rows and buffers, the wide route
+for spectra whose whole rows do not fit a block, threads, shared memory)
+and :func:`plan` (row ranges and blocks for a card that holds a given
+number of blocks). :func:`layout_bytes` mirrors the kernel's shared-memory
+layout, whose ``thz_specred_smem`` must agree, and the launch refuses a
+plan that does not fit it. The kernel's grid-barrier counters are one
+small int32 tensor per device and stream: launches on one stream run in
+order, and each leaves its pair as it found it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
@@ -29,10 +38,11 @@ from thz_image_explorer_tpu_torch.ops.fourier import finish_unwrap, phase_increm
 #: masks per kernel launch (the kernel's per-thread accumulators are
 #: unrolled over a compile-time mask count)
 MAX_MASKS = 16
-#: partial-sum blocks per SM the row chunking aims for
-_BLOCKS_PER_SM = 8
-#: frequency columns per block (``kThreads`` in csrc/specred.cu)
-_COLS_PER_BLOCK = 128
+#: csrc/specred.cu's preferred rows per tile (SR_ROWS) and tile buffers
+#: (SR_STAGES), columns of one block (kMaxCols), and the shared memory a
+#: block may use (``thz_specred_config``)
+ROWS, STAGES, MAX_COLS = 4, 4, 640
+SMEM_PER_BLOCK = 232_448
 
 Sums = tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -94,13 +104,135 @@ def _in_groups(reduce_group, spec, masks, with_complex) -> Sums:
     return out[0], out[1], None, None
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def layout_bytes(f: int, cw: int, m: int, rows: int, stages: int, wide: bool) -> int:
+    """Shared-memory bytes of one block (``thz_specred_smem``): the tile
+    barriers, ``stages`` tiles of ``rows`` rows of F complex64 (of the
+    chunk's ``cw`` columns and the one left of them on the wide route), two
+    (amp, angle) buffers of rows x (cw + 1) and two mask buffers of
+    rows x round4(M) f32."""
+    ts = cw + 1 if wide else f
+    return (_round_up(stages * 8, 16) + stages * rows * ts * 8 + 2 * rows * (cw + 1) * 8
+            + 2 * rows * _round_up(m, 4) * 4)
+
+
+def shape(f: int, m: int, rows: int = ROWS, stages: int = STAGES,
+          max_cols: int = MAX_COLS) -> dict:
+    """The block's shape for F columns and m masks, from the shapes alone:
+    column chunks of at most ``max_cols``; tiles of whole rows, ``rows``
+    rows in ``stages`` buffers, fewer buffers (down to 2) where that does
+    not fit a block, then 2 rows; where even that does not fit (F above
+    ~6 600), the wide route: tiles of the chunk's columns, read with plain
+    loads, in 2 buffers. Threads: one per column and per mask value of a
+    tile, in whole warps."""
+    if not (1 <= m <= MAX_MASKS and f >= 1):
+        raise ValueError(f"no spectral reduction shape for f={f}, m={m}")
+    chunks = -(-f // max_cols)
+    cw = -(-f // chunks)
+    wide, preferred_rows = False, rows
+    nbytes = layout_bytes(f, cw, m, rows, stages, wide)
+    while nbytes > SMEM_PER_BLOCK and stages > 2:
+        stages -= 1
+        nbytes = layout_bytes(f, cw, m, rows, stages, wide)
+    if nbytes > SMEM_PER_BLOCK:
+        rows = 2
+        nbytes = layout_bytes(f, cw, m, rows, stages, wide)
+    if nbytes > SMEM_PER_BLOCK:
+        rows, stages, wide = preferred_rows, 2, True
+        nbytes = layout_bytes(f, cw, m, rows, stages, wide)
+    return dict(chunks=chunks, cw=cw, rows=rows, stages=stages, wide=wide,
+                threads=max(_round_up(cw, 32), _round_up(m * rows, 32)), smem=nbytes)
+
+
+def plan(n: int, f: int, m: int, blocks_possible: int, **preferred) -> dict:
+    """The launch plan for an (n, f) spectrum and m masks on a card that
+    holds ``blocks_possible`` blocks of this shape at once (the occupancy
+    times the SMs): :func:`shape` (``preferred`` overrides its rows,
+    stages and max_cols), the tiles, the row ranges (a range and a column
+    chunk make an item; as many ranges as the resident blocks allow, at
+    least one) and the blocks (every item its own block where the card
+    holds them all; all blocks resident: the launch is cooperative)."""
+    if n < 1 or blocks_possible < 1:
+        raise ValueError(f"no spectral reduction plan for n={n} on {blocks_possible} blocks")
+    s = shape(f, m, **preferred)
+    n_tiles = -(-n // s["rows"])
+    ranges = max(1, min(blocks_possible // s["chunks"], n_tiles))
+    return dict(s, n_tiles=n_tiles, ranges=ranges,
+                grid=min(ranges * s["chunks"], blocks_possible))
+
+
+#: the order of thz_specred's ``plan`` array
+_PLAN_ARGS = ("chunks", "cw", "rows", "stages", "wide", "ranges", "grid", "threads", "smem")
+
+
 def _library() -> ctypes.CDLL:
     lib = kernels.load("specred")
     fn = lib.thz_specred
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.thz_specred_smem.argtypes = [ctypes.c_int] * 6
+        lib.thz_specred_smem.restype = ctypes.c_longlong
+        lib.thz_specred_config.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.thz_specred_config.restype = None
+        lib.thz_specred_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        lib.thz_specred_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def library_config(lib=None) -> dict:
+    """The built kernel's compiled shape (``thz_specred_config``): its
+    preferred rows and stages, its columns of one block, its block limit."""
+    out = (ctypes.c_longlong * 4)()
+    (lib or _library()).thz_specred_config(out)
+    return dict(rows=out[0], stages=out[1], max_cols=out[2], smem_per_block=out[3])
+
+
+_plans: dict = {}
+_counters: dict = {}
+
+
+def kernel_plan(n: int, f: int, m: int, with_complex: bool, device=None) -> dict:
+    """:func:`plan` on ``device`` (the current CUDA device by default) for
+    the built kernel: its compiled shape and the blocks the card holds
+    (``thz_specred_blocks_per_sm`` times the SMs), cached by shape. Holds
+    ``args``, the launch's plan array."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (n, f, m, bool(with_complex), index)
+    got = _plans.get(key)
+    if got is None:
+        lib = _library()
+        cfg = library_config(lib)
+        s = shape(f, m, cfg["rows"], cfg["stages"], cfg["max_cols"])
+        with torch.cuda.device(index):
+            per_sm = lib.thz_specred_blocks_per_sm(m, int(bool(with_complex)), s["threads"],
+                                                   s["smem"])
+        if per_sm < 1:
+            raise RuntimeError(f"specred: no block of shape {s} fits an SM (CUDA error "
+                               f"{-per_sm})")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        got = plan(n, f, m, per_sm * sms, rows=cfg["rows"], stages=cfg["stages"],
+                   max_cols=cfg["max_cols"])
+        got["blocks_possible"] = per_sm * sms
+        got["args"] = (ctypes.c_longlong * len(_PLAN_ARGS))(*(int(got[k]) for k in _PLAN_ARGS))
+        _plans[key] = got
+    return got
+
+
+def _barrier_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's grid-barrier counters for launches on ``stream`` of
+    ``device``: {arrivals, generation}, zero when made (on that stream);
+    each launch leaves the arrivals zero."""
+    key = (device, stream)
+    have = _counters.get(key)
+    if have is None:
+        have = _counters[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return have
 
 
 def _launch(spec: torch.Tensor, masks: torch.Tensor, with_complex: bool) -> torch.Tensor:
@@ -110,19 +242,18 @@ def _launch(spec: torch.Tensor, masks: torch.Tensor, with_complex: bool) -> torc
     m = masks.shape[0]
     n_out = 4 if with_complex else 2
     masks = masks.contiguous()
-    # row chunks: enough blocks (frequency tiles x chunks) for a few per SM
-    sms = torch.cuda.get_device_properties(spec.device).multi_processor_count
-    col_tiles = -(-f // _COLS_PER_BLOCK)
-    chunks = max(1, min(-(-n // 32), math.ceil(_BLOCKS_PER_SM * sms / col_tiles)))
-    rows_per_chunk = -(-n // chunks)
-    chunks = -(-n // rows_per_chunk)
-    partial = torch.empty((chunks, n_out, m, f), dtype=torch.float32, device=spec.device)
+    p = kernel_plan(n, f, m, with_complex, spec.device)
+    bulk = not p["wide"] and spec.data_ptr() % 16 == 0
+    partial = torch.empty(p["ranges"] * n_out * m * f, dtype=torch.float32, device=spec.device)
     out = torch.empty((n_out, m, f), dtype=torch.float32, device=spec.device)
-    err = lib.thz_specred(
-        torch.view_as_real(spec).data_ptr(), masks.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), n, f, m, int(bool(with_complex)), rows_per_chunk, chunks,
-        torch.cuda.current_stream(spec.device).cuda_stream,
-    )
+    with torch.cuda.device(spec.device):
+        stream = torch.cuda.current_stream(spec.device).cuda_stream
+        counters = _barrier_counters(spec.device, stream)
+        err = lib.thz_specred(
+            torch.view_as_real(spec).data_ptr(), masks.data_ptr(), partial.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), n, f, m, int(bool(with_complex)), p["args"],
+            int(bulk), stream,
+        )
     if err != 0:
         raise RuntimeError(f"specred kernel launch failed: CUDA error {err}")
     spectral_reduction_sums.launches += 1
