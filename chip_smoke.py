@@ -13,8 +13,9 @@ the deconvolution Apply path on the same scan with a synthetic asymmetric
 PSF (25 bands, 500 iterations: one cluster-kernel launch per progress
 checkpoint), followed by slider steps and clicks that must not rerun it and
 a 3-D view of the deconvolved scan; both separable Richardson-Lucy routes
-(the cluster kernel and the half-iteration kernel), the general 2-D and the
-grouped Richardson-Lucy kernels on the Apply's own inputs; then the
+(the cluster kernel and the half-iteration kernel), both routes of the
+general 2-D kernel (the cluster kernel and the tiled one) and the grouped
+cluster kernel on the Apply's own inputs and ragged ones; then the
 same commands, the 3-D view and SaveVTU on a small scan on the card and on
 the CPU; and finally a 512x512x1024 scan with one live 3-D view. Each phase
 prints one JSON line; the script exits
@@ -51,11 +52,15 @@ _RLSEP_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:140"
 _ENVELOPE_REPLACES = "thz_image_explorer_tpu/ops/voxel.py:213"
 _RL2D_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:61"
 _RLSEP_GROUPED_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:157"
-#: why the kernels line has no previous-design time for the two kernels
+#: why the kernels line has no previous-design time for the kernels
 #: redesigned in place: the smoke builds only the checkout's sources
 _PREVIOUS_DESIGN = ("the smoke builds only this checkout's sources; "
                     "scripts/torch_envelope_specred_sweep.py times the previous design "
                     "(commit dea24f1) in one call with this one, PERF.md section 6")
+_GROUPED_PREVIOUS_DESIGN = ("the previous design, the group mode of commit 71e894e's "
+                            "csrc/rlsep.cu, is deleted and the smoke builds only this "
+                            "checkout's sources; scripts/torch_rl2d_grouped_sweep.py times it "
+                            "in one call with this one, PERF.md section 6")
 #: the SMs of an H100 SXM, for the cluster kernel's critical-path floor
 _SMS = 132
 #: kernel vs plain Richardson-Lucy, per band: |kernel - plain| <= this *
@@ -64,8 +69,12 @@ _SMS = 132
 _RL_REL_TOL = 1e-3
 
 
+#: the script's start, for each phase line's elapsed seconds
+_T0 = time.perf_counter()
+
+
 def emit(**obj):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}), flush=True)
 
 
 def synthetic_scan(width, height, n_time, dt=0.05, seed=0):
@@ -584,11 +593,12 @@ def small_reference_check(seed, tmp):
 
 
 # ---------------------------------------------------------------- Apply
-def drive_apply(ex, n_slider, n_clicks, rng):
+def drive_apply(ex, n_slider, n_clicks, n_again, rng):
     """The Apply path as a user drives it, on an open scan: the PSF, the
     deconvolution switched on (no rerun), Apply (the first one plans the
     bands on the host), then slider steps and clicks (the deconvolution is
-    suppressed: no RL launch), then Apply again (the plan is cached). Each
+    suppressed: no RL launch), then Apply ``n_again`` times more (the plan
+    is cached; the median of the repeats is reported, their host time varies). Each
     Apply launches the cluster kernel once per non-empty checkpoint group
     and the half-iteration kernel never (the canvas fits a cluster).
     Returns (measurements, band geometry, the deconvolution's input at the
@@ -648,12 +658,16 @@ def drive_apply(ex, n_slider, n_clicks, rng):
     out.update(slider_ms=[m for m, _ in slider], slider_rl_launches=[n for _, n in slider],
                click_ms=[m for m, _ in clicks], click_rl_launches=[n for _, n in clicks])
     tiled_before = rl.launches_tiled
-    again_ms, again_launches = run(lambda: ex.update_filter("deconvolution", force=True))
-    assert again_launches == apply_launches and rl.launches_tiled == tiled_before, \
-        (again_launches, apply_launches)
+    again, again_stage = [], []
+    for _ in range(n_again):
+        again.append(run(lambda: ex.update_filter("deconvolution", force=True)))
+        again_stage.append(p.timings_ms["deconvolution"])
+    assert all(n == apply_launches for _ms, n in again) and rl.launches_tiled == tiled_before, \
+        (again, apply_launches)
     assert np.isfinite(ex.image).all()
-    out.update(apply_again_ms=again_ms, apply_again_stage_ms=p.timings_ms["deconvolution"],
-               apply_again_rl_launches=again_launches)
+    again_ms = [m for m, _ in again]
+    out.update(apply_again_ms=statistics.median(again_ms), apply_again_ms_runs=again_ms,
+               apply_again_stage_ms_runs=again_stage, apply_again_rl_launches=again[0][1])
     return out, geometry, deconv_input
 
 
@@ -726,27 +740,49 @@ def check_rl(padded, px, py, n_iter, label, route, ref=None):
 
 
 @contextlib.contextmanager
+def _patched(module, name, value):
+    kept = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, kept)
+
+
 def preferred_cluster(s):
     """The cluster route at ``s`` CTAs per band where that fits."""
     from thz_image_explorer_tpu_torch.ops import rlsep
 
-    kept = rlsep.PREFERRED_CLUSTER
-    rlsep.PREFERRED_CLUSTER = s
-    try:
-        yield
-    finally:
-        rlsep.PREFERRED_CLUSTER = kept
+    return _patched(rlsep, "PREFERRED_CLUSTER", s)
 
 
-def rl_critical_path_ms(geometry, shape, s):
-    """The cluster kernel's floor: the band with the most work (n_iter x
-    its region x operations per pixel, as ``rl_bound_ms`` counts them) on
-    the ``s`` SMs of its cluster at their share of the f32 peak."""
+def half_iteration_route():
+    """``rl_bands_separable`` on the half-iteration route whatever the
+    canvas: no cluster size fits (``cluster_size_for`` returns None)."""
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    return _patched(rlsep, "MAX_CLUSTER", 0)
+
+
+def tiled_rl2d():
+    """``richardson_lucy_direct`` on the tiled route whatever the taps."""
+    from thz_image_explorer_tpu_torch.ops import rl2d
+
+    return _patched(rl2d, "CLUSTER_MAX_TAPS", 0)
+
+
+def rl_critical_path_ms(geometry, shape, s, group=1):
+    """The cluster kernel's floor: the cluster with the most work (n_iter x
+    its region x operations per pixel, as ``rl_bound_ms`` counts them,
+    summed over the ``group`` consecutive bands of the descending-n_iter
+    order it holds) on its ``s`` SMs at their share of the f32 peak."""
     kr = 2 * geometry.pad_r.astype(np.int64) + 1
     kc = 2 * geometry.pad_c.astype(np.int64) + 1
     area = (shape[0] + kr - 1) * (shape[1] + kc - 1)
     per_band = geometry.n_iter.astype(np.int64) * area * (4 * kr + 4 * kc + 3)
-    return float(per_band.max()) / (_F32_PEAK * s / _SMS) * 1e3, int(per_band.max())
+    per_band = per_band[np.argsort(-geometry.n_iter, kind="stable")]
+    most = max(int(per_band[i: i + group].sum()) for i in range(0, len(per_band), group))
+    return most / (_F32_PEAK * s / _SMS) * 1e3, most
 
 
 def over_limit_rl_case(dev, gen):
@@ -1074,18 +1110,81 @@ def rl2d_bound_ms(h2, w2, kr, kc, n_iter, name):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def check_grouped(padded, px, py, n_iter, group, group1, label):
-    """The grouped kernel equals ``group1``, its own output at group 1 (the
-    half-iteration kernel's launch), bit for bit."""
+def rl2d_floor_ms(h2, w2, kr, kc, n_iter, s):
+    """The cluster 2-D kernel's floor: its operations (as ``rl2d_bound_ms``
+    counts them) on the ``s`` SMs of its cluster at their share of the f32
+    peak."""
+    return n_iter * h2 * w2 * (4 * kr * kc + 3) / (_F32_PEAK * s / _SMS) * 1e3
+
+
+def ragged_rl2d_cases(dev, gen):
+    """rl2d inputs ``(padded, psf, n_iter)`` the main case does not give: an
+    odd number of rows and a width no multiple of 4, fewer rows than 16, an
+    even PSF (whose window sits one sample below "SAME"), a reach longer
+    than one slab, 8 x 8 tap tiles (a bank over 9 columns), a 3 x 3 PSF."""
+    import torch
+
+    def case(h2, w2, kr, kc, n_iter, r0=0.6, c0=-0.4):
+        img = 0.2 + 1.3 * torch.rand((h2, w2), device=dev, generator=gen)
+        psf = torch.as_tensor(gauss2d(kr, kc, r0, c0, kr / 4 + 0.5, kc / 4 + 0.5), device=dev)
+        return img, psf, n_iter
+
+    return {
+        "odd_rows_37x45_9x9": case(37, 45, 9, 9, 20),
+        "under_16_rows_11x70_5x7": case(11, 70, 5, 7, 12),
+        "even_psf_21x26_6x4": case(21, 26, 6, 4, 9, 0.4, -0.3),
+        "reach_past_slab_40x33_21x3": case(40, 33, 21, 3, 7),
+        "tiles8_61x97_13x11": case(61, 97, 13, 11, 11),
+        "psf3x3_130x70": case(130, 70, 3, 3, 55),
+    }
+
+
+def check_rl2d(padded, psf, n_iter, label, route, ref=None):
+    """``richardson_lucy_direct`` vs plain (or ``ref``) on the card through
+    ``route`` ("cluster" or "tiled", which the shapes must select): |kernel
+    - plain| <= _RL_REL_TOL * max|plain|, all finite, and two kernel runs
+    bit-identical. Returns (max abs error, max relative error, (cluster
+    launches, tiled launches) of the two runs)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import rl2d
+
+    fn = rl2d.richardson_lucy_direct
+    took = rl2d.route_for(*padded.shape, *psf.shape)[0]
+    assert took == route, (label, took, route)
+    before = fn.launches, fn.launches_tiled
+    got = fn(padded, psf, n_iter)
+    again = fn(padded, psf, n_iter)
+    counted = fn.launches - before[0], fn.launches_tiled - before[1]
+    assert (counted[1] == 0) == (route == "cluster") and (counted[0] == 0) == (route == "tiled")
+    if ref is None:
+        ref = rl2d.richardson_lucy_direct_plain(padded, psf, n_iter)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two rl2d kernel runs differ")
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    if err > _RL_REL_TOL * scale or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: rl2d err {err} vs max {scale}")
+    return err, err / scale, counted
+
+
+def check_grouped(padded, px, py, n_iter, group, ref, label):
+    """The grouped kernel equals ``ref``, ``rl_bands_separable``'s cluster
+    route on the same inputs, bit for bit, in one launch per non-empty
+    checkpoint group. Returns its launches."""
     import torch
 
     from thz_image_explorer_tpu_torch.ops import rlsep
 
+    before = rlsep.rl_bands_separable_grouped.launches
     got = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=group)
+    launches = rlsep.rl_bands_separable_grouped.launches - before
     torch.cuda.synchronize()
-    if not torch.equal(got, group1):
-        diff = float((got - group1).abs().max())
-        raise AssertionError(f"{label} group={group}: differs from group 1 by {diff}")
+    if not torch.equal(got, ref):
+        diff = float((got - ref).abs().max())
+        raise AssertionError(f"{label} group={group}: differs from the cluster route by {diff}")
+    assert launches == len(rlsep.launch_schedule(n_iter)), (label, group, launches)
+    return launches
 
 
 def main() -> int:
@@ -1259,12 +1358,14 @@ def main() -> int:
     sr.spectral_reduction_sums.launches = 0
     rlsep.rl_bands_separable.launches = 0
     rlsep.rl_bands_separable.launches_tiled = 0
-    apply, geometry, deconv_input = drive_apply(ex, 3, 5, np.random.default_rng(args.seed))
-    # two Applies, each one cluster launch per non-empty checkpoint group
-    # (9 at the default parameters) and no half-iteration launch
+    n_again = 5
+    apply, geometry, deconv_input = drive_apply(ex, 3, 5, n_again,
+                                                np.random.default_rng(args.seed))
+    # 1 + n_again Applies, each one cluster launch per non-empty checkpoint
+    # group (9 at the default parameters) and no half-iteration launch
     apply_launches = rlsep.rl_bands_separable.launches
     apply_tiled_launches = rlsep.rl_bands_separable.launches_tiled
-    assert apply_launches == 2 * len(rlsep.launch_schedule(geometry.n_iter)) > 0
+    assert apply_launches == (1 + n_again) * len(rlsep.launch_schedule(geometry.n_iter)) > 0
     assert apply_tiled_launches == 0
     geo = geometry_summary(geometry, (width, height))
     emit(phase="apply", shape=[width, height, n_time], card=smi, dx_mm=0.5,
@@ -1289,7 +1390,7 @@ def main() -> int:
     # 6. the separable RL kernels vs their plain version: the cluster kernel
     # on the Apply's own inputs (at its cluster size and at 8) and on ragged
     # ones, the half-iteration kernel on a canvas over the cluster limit and
-    # (at group 1) on the Apply's inputs
+    # (routed there by half_iteration_route) on the Apply's inputs
     padded, px, py, n_iter = dec.rl_inputs(deconv_input, geometry)
     del deconv_input
     rl_shape = list(padded.shape)
@@ -1303,6 +1404,9 @@ def main() -> int:
             if s <= shape[1]:
                 args_ = (shape[1], shape[2], kr, kc, s)
                 assert smem(*args_) == rlsep.cluster_smem_bytes(*args_), args_
+                for g in (1, 2, 5):
+                    assert rlsep._cluster_library().thz_rlsep_grouped_smem(*args_, g) == \
+                        rlsep.grouped_smem_bytes(*args_, g), (args_, g)
     rl_plain = rlsep.rl_bands_separable_plain(padded, px, py, n_iter)
     rl_err, rl_rel = check_rl(padded, px, py, n_iter, "apply geometry", "cluster", ref=rl_plain)
     with preferred_cluster(8):
@@ -1316,10 +1420,13 @@ def main() -> int:
     tiled_before = rlsep.rl_bands_separable.launches_tiled
     over_err = check_rl(*over, "over the cluster limit 720x720", "tiled")
     over_launches = rlsep.rl_bands_separable.launches_tiled - tiled_before
-    tiled = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1)
+    tiled_before = rlsep.rl_bands_separable.launches_tiled
+    with half_iteration_route():
+        tiled = rlsep.rl_bands_separable(padded, px, py, n_iter)
+    assert rlsep.rl_bands_separable.launches_tiled - tiled_before == 2 * int(n_iter.max())
     tiled_err, tiled_rel = rl_errors(tiled, rl_plain, "half-iteration kernel, apply geometry")
     cluster_out = rlsep.rl_bands_separable(padded, px, py, n_iter)
-    del rl_plain, over
+    del rl_plain, over, tiled
 
     def cluster_run(s):
         def run():
@@ -1328,7 +1435,8 @@ def main() -> int:
         return run
 
     def tiled_run():
-        rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1)
+        with half_iteration_route():
+            rlsep.rl_bands_separable(padded, px, py, n_iter)
 
     # in turns, in one call: cluster, half-iteration, half-iteration, cluster
     rl_ms = [time_ms(cluster_run(s_apply), reps=5, inner=1, warm=1)]
@@ -1356,72 +1464,138 @@ def main() -> int:
          launches_per_apply=apply["rl_launches"], card=smi)
 
     # 6b. the general 2-D RL kernel: (a) the Apply's band-0 canvas with an
-    # asymmetric 9x9 PSF at the band's n_iter, against the plain version;
-    # (b) two bands' separable PSFs px (x) py as 2-D PSFs, against the
-    # separable kernel's output for those bands (the same function)
+    # asymmetric 9x9 PSF at the band's n_iter, on the cluster route, against
+    # the plain version, and timed against the tiled route (the previous
+    # design) in turns; (b) two bands' separable PSFs px (x) py as 2-D PSFs,
+    # on their route, against the separable kernel's output for those bands
+    # (the same function); (c) ragged images on their routes
     canvas, n0 = padded[0], int(n_iter[0])
     rl2d_shape = list(canvas.shape)
     assert n0 > 0
     psf9 = torch.as_tensor(gauss2d(9, 9, 1.3, -0.8, 1.5, 2.2), device=dev)
+    rl2d_route, rl2d_s = rl2d.route_for(*rl2d_shape, 9, 9)
+    assert rl2d_route == "cluster", rl2d_route
+    lib2 = rl2d._cluster_library()
+    ragged2d_inputs = ragged_rl2d_cases(dev, gen)
+    for shape in [(*rl2d_shape, 9, 9), (*rl2d_shape, kr, kc)] + [
+            (*v[0].shape, *v[1].shape) for v in ragged2d_inputs.values()]:
+        for s in (1, 8, 16):
+            if s <= shape[0]:
+                lay = rl2d.cluster_layout(*shape, s)
+                assert lib2.thz_rl2d_cluster_smem(*shape, s) == lay["bytes"], (shape, s)
+                assert lib2.thz_rl2d_cluster_tile(shape[3]) == lay["tile"], shape
     rl2d.richardson_lucy_direct.launches = 0
+    rl2d.richardson_lucy_direct.launches_tiled = 0
     u2 = rl2d.richardson_lucy_direct(canvas, psf9, n0)
     rl2d_launches = rl2d.richardson_lucy_direct.launches
-    assert rl2d_launches == 2 * n0
-    again = rl2d.richardson_lucy_direct(canvas, psf9, n0)
-    ref2 = rl2d.richardson_lucy_direct_plain(canvas, psf9, n0)
-    torch.cuda.synchronize()
-    assert torch.equal(u2, again), "two rl2d kernel runs differ"
-    rl2d_err = float((u2 - ref2).abs().max())
-    rl2d_scale = float(ref2.abs().max())
-    assert rl2d_err <= _RL_REL_TOL * rl2d_scale and bool(torch.isfinite(u2).all()), rl2d_err
+    assert rl2d_launches == len(rlsep.launch_schedule([n0])) and \
+        rl2d.richardson_lucy_direct.launches_tiled == 0, rl2d_launches
+    # the plain version's one run, timed on the host (816 x 81 slice ops)
+    rl2d_plain_ms, ref2 = timed(lambda: rl2d.richardson_lucy_direct_plain(canvas, psf9, n0))
+    rl2d_err, rl2d_rel, _ = check_rl2d(canvas, psf9, n0, "band0 9x9", "cluster", ref=ref2)
+    with tiled_rl2d():
+        rl2d_tiled_err, _, tiled_counts = check_rl2d(canvas, psf9, n0, "band0 9x9 tiled",
+                                                     "tiled", ref=ref2)
+    assert tiled_counts == (0, 4 * n0), tiled_counts
     use_fft = geometry.use_fft_conv
     picks = [int(np.flatnonzero(use_fft & (n_iter > 0))[0]),
              int(np.flatnonzero(~use_fft & (n_iter > 0))[0])]
     outer = {}
     for b in picks:
         psf_b = torch.outer(px[b], py[b]).contiguous()
-        u_b = rl2d.richardson_lucy_direct(padded[b].contiguous(), psf_b, int(n_iter[b]))
-        err = float((u_b - cluster_out[b]).abs().max())
-        scale = float(cluster_out[b].abs().max())
-        assert err <= _RL_REL_TOL * scale, (b, err, scale)
+        route_b = rl2d.route_for(*rl2d_shape, *psf_b.shape)[0]
+        _, rel, _ = check_rl2d(padded[b].contiguous(), psf_b, int(n_iter[b]),
+                               f"outer product band {b}", route_b, ref=cluster_out[b])
         outer[f"band{b}_{'fft' if use_fft[b] else 'direct'}_{tuple(psf_b.shape)}"
-              f"_n{int(n_iter[b])}"] = err / scale
-    rl2d_ms = time_ms(lambda: rl2d.richardson_lucy_direct(canvas, psf9, n0),
-                      reps=5, inner=1, warm=1)
-    rl2d_plain_ms = time_ms(lambda: rl2d.richardson_lucy_direct_plain(canvas, psf9, n0),
-                            reps=3, inner=1, warm=1)
+              f"_n{int(n_iter[b])}"] = dict(route=route_b, rel_err_vs_rlsep=rel)
+    ragged2d = {}
+    for label, (img, psf, n_img) in ragged2d_inputs.items():
+        route, s = rl2d.route_for(*img.shape, *psf.shape)
+        _, rel, _ = check_rl2d(img, psf, n_img, label, route)
+        ragged2d[label] = dict(route=route, cluster_size=s, max_rel_err=rel,
+                               tile=rl2d.cluster_layout(*img.shape, *psf.shape, s or 1)["tile"])
+    assert all(v["route"] == "cluster" for v in ragged2d.values()), ragged2d
+    assert {v["tile"] for v in ragged2d.values()} == {8, 9}
+
+    def rl2d_cluster_run():
+        rl2d.richardson_lucy_direct(canvas, psf9, n0)
+
+    def rl2d_tiled_run():
+        with tiled_rl2d():
+            rl2d.richardson_lucy_direct(canvas, psf9, n0)
+
+    # in turns, in one call: cluster, tiled, tiled, cluster (device time
+    # behind a spin; the tiled route's 816 launches also by the wrapper's
+    # back-to-back time, its earlier method)
+    rl2d_ms = [device_ms(rl2d_cluster_run, reps=5, inner=1, warm=1)]
+    rl2d_tiled_ms = [device_ms(rl2d_tiled_run, reps=5, inner=1, warm=1)]
+    rl2d_tiled_wrapper_ms = time_ms(rl2d_tiled_run, reps=5, inner=1, warm=1)
+    rl2d_ms.append(device_ms(rl2d_cluster_run, reps=5, inner=1, warm=1))
     rl2d_bound, rl2d_bound_by = rl2d_bound_ms(*canvas.shape, 9, 9, n0, name)
+    rl2d_floor = rl2d_floor_ms(*canvas.shape, 9, 9, n0, rl2d_s)
     emit(phase="rl2d_kernel_vs_plain", shape=rl2d_shape, psf=[9, 9], n_iter=n0,
-         max_abs_err=rl2d_err, max_rel_err=rl2d_err / rl2d_scale, deterministic=True,
-         outer_product_rel_err_vs_rlsep=outer,
+         route=rl2d_route, cluster_size=rl2d_s, cluster_max_taps=rl2d.CLUSTER_MAX_TAPS,
+         max_abs_err=rl2d_err, max_rel_err=rl2d_rel, tiled_max_abs_err=rl2d_tiled_err,
+         deterministic=True, outer_products=outer, ragged=ragged2d,
          tolerance=f"|kernel-plain| <= {_RL_REL_TOL} * max|plain|; outer products vs the "
                    f"rlsep_cluster kernel's band, the same",
-         kernel_ms=rl2d_ms, plain_ms=rl2d_plain_ms, bound_ms=rl2d_bound,
-         bound_by=rl2d_bound_by, launches=rl2d_launches)
-    del u2, again, ref2
+         kernel_ms=rl2d_ms, tiled_ms=rl2d_tiled_ms, tiled_wrapper_ms=rl2d_tiled_wrapper_ms,
+         timing="device time behind a spin (device_ms), in turns",
+         plain_ms=rl2d_plain_ms, bound_ms=rl2d_bound, bound_by=rl2d_bound_by,
+         critical_path_ms=rl2d_floor, launches=rl2d_launches, tiled_launches=2 * n0, card=smi)
+    del u2, ref2, ragged2d_inputs
 
-    # 6c. the grouped separable kernel: bit for bit the half-iteration kernel
-    # at group 1 (the same arithmetic), on the Apply's RL inputs (group 5)
-    # and on the ragged cases (group 2 where B is even, else group B)
+    # 6c. the grouped cluster kernel: bit for bit the cluster route, on the
+    # Apply's RL inputs (group 5) and on the ragged cases (group 2 and B
+    # where they fit); a group that does not fit refused; groups 1, 2 and 5
+    # timed in turns on the Apply's first 20 bands (20 is a multiple of each)
     assert padded.shape[0] % 5 == 0
+    s_group5 = rlsep.cluster_size_for(*rl_shape[1:], kr, kc, 5)
+    assert s_group5 == s_apply, s_group5
     rlsep.rl_bands_separable_grouped.launches = 0
-    grouped = rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=5)
+    check_grouped(padded, px, py, n_iter, 5, cluster_out, "apply geometry")
     grouped_launches = rlsep.rl_bands_separable_grouped.launches
-    torch.cuda.synchronize()
-    assert torch.equal(grouped, tiled), "group=5 differs from group 1"
-    assert grouped_launches == 2 * int(n_iter.max())
     ragged_groups = {}
     for label, inputs in ragged_inputs.items():
-        group = 2 if inputs[0].shape[0] % 2 == 0 else inputs[0].shape[0]
-        check_grouped(*inputs, group, rlsep.rl_bands_separable_grouped(*inputs, group=1), label)
-        ragged_groups[label] = group
-    grouped_ms = time_ms(
-        lambda: rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=5),
-        reps=5, inner=1, warm=1)
-    emit(phase="rl_grouped_vs_group1", shape=rl_shape, group=5, bit_identical=True,
-         ragged_groups=ragged_groups, kernel_ms_group5=grouped_ms,
-         kernel_ms_group1=tiled_ms, launches=grouped_launches)
-    del padded, px, py, tiled, cluster_out, grouped
+        b = inputs[0].shape[0]
+        ref_g = rlsep.rl_bands_separable(*inputs)
+        shape = (*inputs[0].shape[1:], inputs[1].shape[1], inputs[2].shape[1])
+        ragged_groups[label] = [g for g in sorted({2, b}) if b % g == 0 and
+                                rlsep.cluster_size_for(*shape, g) is not None]
+        for g in ragged_groups[label]:
+            check_grouped(*inputs, g, ref_g, label)
+    assert any(len(v) > 0 and max(v) > 1 for v in ragged_groups.values()), ragged_groups
+    six = [x[:6].contiguous() for x in (padded, px, py)]
+    assert rlsep.cluster_size_for(*rl_shape[1:], kr, kc, 6) is None
+    try:
+        rlsep.rl_bands_separable_grouped(*six, n_iter[:6], group=6)
+        raise AssertionError("group 6 at the Apply's canvas was not refused")
+    except ValueError as e:
+        assert "do not fit" in str(e), e
+    twenty = [x[:20].contiguous() for x in (padded, px, py)]
+    n20 = n_iter[:20]
+
+    def grouped_run(g, inputs=twenty, n=n20):
+        return lambda: rlsep.rl_bands_separable_grouped(*inputs, n, group=g)
+
+    grouped20_ms = {1: [], 2: [], 5: []}
+    for g in (1, 2, 5, 5, 2, 1):
+        grouped20_ms[g].append(device_ms(grouped_run(g), reps=3, inner=1, warm=1))
+    grouped_ms = device_ms(grouped_run(5, (padded, px, py), n_iter), reps=5, inner=1, warm=1)
+    # per band-iteration of the first cluster, the one holding the longest
+    # chains, whose work sets the time
+    first = np.sort(n20)[::-1]
+    us_per_band_iteration = {g: statistics.median(v) * 1e3 / int(first[:g].sum())
+                             for g, v in grouped20_ms.items()}
+    grouped_floor, grouped_floor_ops = rl_critical_path_ms(geometry, (width, height), s_apply, 5)
+    emit(phase="rl_grouped_vs_group1", shape=rl_shape, group=5, cluster_size=s_group5,
+         bit_identical="group 5 == rl_bands_separable's cluster route", ragged_groups=ragged_groups,
+         group6="ValueError (does not fit 16 CTAs)", launches=grouped_launches,
+         kernel_ms_group5=grouped_ms, first20_ms=grouped20_ms,
+         first20_n_iter_sum=int(n20.sum()), us_per_band_iteration=us_per_band_iteration,
+         critical_path_ms=grouped_floor, timing="device time behind a spin (device_ms), in turns",
+         card=smi)
+    del padded, px, py, cluster_out, twenty, six
 
     # 7. card vs CPU on a small scan: main path, Apply, downscale
     small_tmp = tempfile.TemporaryDirectory()
@@ -1456,7 +1630,7 @@ def main() -> int:
          plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, sm_clock_hz=clock,
          sass_per_element=sr_per_element, issue_floor_ms=sr_floor,
          envelope_sass_per_sample=env_per_sample, envelope_issue_floor_ms=env_floor)
-    del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks, final, env_flat, canvas
+    del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks, final, env_flat, canvas, psf9
     torch.cuda.empty_cache()
 
     # 9. scale: the README's larger scan, 512x512x1024 (a 1 GiB cube)
@@ -1544,7 +1718,7 @@ def main() -> int:
         "route": "cuda",
         "source": "thz_image_explorer_tpu_torch/csrc/rlsep_cluster.cu",
         "replaces": _RLSEP_REPLACES,
-        # the Apply path's run: two Applies, one launch per checkpoint group
+        # the Apply path's run: six Applies, one launch per checkpoint group
         "launches": apply_launches,
         "launches_per_apply": apply["rl_launches"],
         "max_abs_err": rl_err,
@@ -1608,15 +1782,25 @@ def main() -> int:
     }, {
         "name": "rl2d",
         "route": "cuda",
-        "source": "thz_image_explorer_tpu_torch/csrc/rl2d.cu",
+        "source": "thz_image_explorer_tpu_torch/csrc/rl2d_cluster.cu",
         "replaces": _RL2D_REPLACES,
-        # no production path: one run through richardson_lucy_direct
+        # no production path: one run through richardson_lucy_direct, on the
+        # cluster route (one launch per checkpoint group)
         "launches": rl2d_launches,
+        "kernel_route": rl2d_route,
+        "cluster_size": rl2d_s,
         "max_abs_err": rl2d_err,
-        "ms": rl2d_ms,
+        "max_rel_err": rl2d_rel,
+        "ms": statistics.median(rl2d_ms),
+        "ms_runs": rl2d_ms,
+        # the tiled route (csrc/rl2d.cu, two launches an iteration), in turns
+        "ms_previous_design": statistics.median(rl2d_tiled_ms),
+        "previous_design": "thz_image_explorer_tpu_torch/csrc/rl2d.cu (the tiled route)",
         "plain_ms": rl2d_plain_ms,
         "bound_ms": rl2d_bound,
         "bound_by": rl2d_bound_by,
+        "critical_path_ms": rl2d_floor,
+        "cluster_max_taps": rl2d.CLUSTER_MAX_TAPS,
         # no single PyTorch call runs the Richardson-Lucy recurrence
         "library_ms": None,
         "shape": rl2d_shape + [9, 9],
@@ -1624,15 +1808,23 @@ def main() -> int:
     }, {
         "name": "rlsep_grouped",
         "route": "cuda",
-        "source": "thz_image_explorer_tpu_torch/csrc/rlsep.cu",
+        "source": "thz_image_explorer_tpu_torch/csrc/rlsep_cluster.cu",
         "replaces": _RLSEP_GROUPED_REPLACES,
-        # no production path: one run through rl_bands_separable_grouped
+        # no production path: one run through rl_bands_separable_grouped at
+        # group 5 (one launch per checkpoint group)
         "launches": grouped_launches,
+        "kernel_route": "grouped cluster",
+        "cluster_size": s_group5,
         "max_abs_err": 0.0,
         "ms": grouped_ms,
+        "ms_previous_design": None,
+        "previous_design_missing": _GROUPED_PREVIOUS_DESIGN,
+        "us_per_band_iteration": us_per_band_iteration,
         "plain_ms": rl_plain_ms,
         "bound_ms": rl_bound,
         "bound_by": rl_bound_by,
+        "critical_path_ms": grouped_floor,
+        "critical_path_operations": grouped_floor_ops,
         "library_ms": None,
         "shape": rl_shape,
         "group": 5,

@@ -36,19 +36,19 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import synthetic_psf, synthetic_scan, time_ms  # noqa: E402
+from chip_smoke import half_iteration_route, synthetic_psf, synthetic_scan, time_ms  # noqa: E402
 
 SHAPES = {"strips1_sr8": (1, 8), "strips2_sr8": (2, 8), "strips4_sr8": (4, 8),
           "strips1_sr16": (1, 16), "strips2_sr16": (2, 16)}
 
 _AXIS0 = "blocked_correlation<kSR>(tqr, mr, acc, [&](int m) { return win[m][c]; });"
 _AXIS1 = "blocked_correlation<kCB>(tqc, mc, acc, [&](int m) { return sp[m * (kPass + 1)]; });"
-_OWNER = """      const int o = owner(h2, a.s, j);
-      int olo, on;
-      slab(h2, a.s, o, olo, on);
-      const size_t off = (size_t)(j - olo) * L.ws;"""
-_LOCAL = """      const int o = q, olo = lo;
-      const size_t off = (size_t)min(max(j - lo, 0), n - 1) * L.ws;"""
+_OWNER = """        const int o = owner(h2, a.s, j);
+        int olo, on;
+        slab(h2, a.s, o, olo, on);
+        const size_t off = (size_t)(j - olo) * L.ws;"""
+_LOCAL = """        const int o = q, olo = lo;
+        const size_t off = (size_t)min(max(j - lo, 0), n - 1) * L.ws;"""
 #: source edits of the timing-only copies: (text, replacement) pairs
 PARTS = {
     "axis0_rows_local": [(_OWNER, _LOCAL)],
@@ -171,8 +171,11 @@ def main() -> int:
         print(json.dumps({"per_launch_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
                           "schedule": rlsep.launch_schedule(n_iter), "cluster_size": s,
                           "card": card}), flush=True)
-    tiled_ms = time_ms(lambda: rlsep.rl_bands_separable_grouped(padded, px, py, n_iter, group=1),
-                       reps=5, inner=1, warm=1)
+    def tiled_run():
+        with half_iteration_route():
+            rlsep.rl_bands_separable(padded, px, py, n_iter)
+
+    tiled_ms = time_ms(tiled_run, reps=5, inner=1, warm=1)
     print(json.dumps({"half_iteration_ms": tiled_ms, "card": card}), flush=True)
 
     # one band alone: where an iteration's time goes

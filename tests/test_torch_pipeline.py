@@ -17,9 +17,11 @@ import torch
 
 from make_sample import synthetic_scan, write_scan_thz
 from thz_image_explorer_tpu.io import dotthz as jdotthz
+from thz_image_explorer_tpu.ops.windows import WindowType as JaxWindowType
 from thz_image_explorer_tpu.pipeline import Explorer as JaxExplorer
 from thz_image_explorer_tpu_torch import convert
 from thz_image_explorer_tpu_torch.io import dotthz as tdotthz
+from thz_image_explorer_tpu_torch.ops.windows import WindowType as PortWindowType
 from thz_image_explorer_tpu_torch.pipeline import Explorer, PlotData
 from thz_image_explorer_tpu_torch.pipeline import publish as tpublish
 from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
@@ -59,6 +61,49 @@ STEPS = [
     ("downscale", lambda ex, _: ex.set_downscaling(2)),
 ]
 
+
+def _window(name):
+    """``set_fft_window_type`` with each package's own enum member."""
+    return lambda ex, _: ex.set_fft_window_type(
+        (JaxWindowType if isinstance(ex, JaxExplorer) else PortWindowType)[name])
+
+
+#: the commands STEPS skips, on a 19x13 scan (no 16-pixel multiple, and 3
+#: divides neither side): the window's high edge and the four other window
+#: types, an FD band-pass switched on, moved and switched off, two ROIs
+#: of one name (the sample), clicks outside the grid, the reference ROI
+#: deleted, downscaling by 3. The JAX loader runs without its shape buckets
+#: here (THZ_SHAPE_BUCKET=1): with them it clamps a click to the padded
+#: grid, keeps the scan's image shape after a downscale that does not divide
+#: it, and gives another mean phase under the Blackman window (ROADMAP,
+#: queue 3: JAX quirks the port does not follow).
+STEPS_MORE = [
+    ("open", lambda ex, path: ex.open_file(path)),
+    ("rois_same_name", lambda ex, _: (
+        ex.add_roi("u1", "ref", [(1, 1), (7, 1), (7, 6), (1, 6)]),
+        ex.add_roi("u2", "twin", [(9, 2), (15, 2), (15, 9)]),
+        ex.add_roi("u3", "twin", [(2, 8), (8, 8), (5, 12)]),
+        ex.set_reference("ref"), ex.set_sample("twin"))),
+    # the high edge of the adapted Blackman window (the other types span
+    # the whole trace)
+    ("window_high", lambda ex, _: ex.set_fft_window_high(2.6)),
+    ("blackman", _window("BLACKMAN")),
+    ("hanning", _window("HANNING")),
+    ("hamming", _window("HAMMING")),
+    ("flat_top", _window("FLAT_TOP")),
+    ("fd_bandpass_on", lambda ex, _: ex.set_filter_active("frequency_band_pass", True)),
+    ("fd_bandpass_param", lambda ex, _: (
+        ex.set_filter_param("frequency_band_pass", "high", 1.5),
+        ex.update_filter("frequency_band_pass"))),
+    ("fd_bandpass_off", lambda ex, _: ex.set_filter_active("frequency_band_pass", False)),
+    ("click_past_right", lambda ex, _: ex.set_selected_pixel(40, 5)),
+    ("click_past_bottom", lambda ex, _: ex.set_selected_pixel(4, 30)),
+    ("click_corner", lambda ex, _: (ex.set_sample("Selected Pixel"),
+                                    ex.set_selected_pixel(18, 12))),
+    ("delete_reference", lambda ex, _: ex.delete_roi("u1")),
+    ("downscale_3", lambda ex, _: ex.set_downscaling(3)),
+]
+
 _SERIES = [f.name for f in dataclasses.fields(PlotData)]
 
 
@@ -93,9 +138,62 @@ def runs(scan_path):
     return out
 
 
+@pytest.fixture(scope="module")
+def more_scan_path(tmp_path_factory):
+    t, raw = synthetic_scan(width=19, height=13, n_time=64, seed=3)
+    return write_scan_thz(str(tmp_path_factory.mktemp("scan") / "m.thzimg"), t, raw)
+
+
+@pytest.fixture(scope="module")
+def more_runs(more_scan_path):
+    """Both Explorers driven through STEPS_MORE, the JAX one without its
+    shape buckets; a snapshot after each step."""
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("THZ_SHAPE_BUCKET", "1")
+        for key, ex in (("jax", JaxExplorer()), ("port", Explorer(device="cpu"))):
+            snaps = []
+            for _name, step in STEPS_MORE:
+                step(ex, more_scan_path)
+                snaps.append(_snapshot(ex))
+            out[key] = snaps
+    return out
+
+
 @pytest.mark.parametrize("step", range(len(STEPS)), ids=[s[0] for s in STEPS])
 def test_slice_matches_jax_explorer(runs, step):
-    (jplot, jimg), (tplot, timg) = runs["jax"][step], runs["port"][step]
+    _assert_same(runs["jax"][step], runs["port"][step])
+
+
+@pytest.mark.parametrize("step", range(len(STEPS_MORE)), ids=[s[0] for s in STEPS_MORE])
+def test_more_commands_match_jax_explorer(more_runs, step):
+    _assert_same(more_runs["jax"][step], more_runs["port"][step])
+
+
+def test_more_commands_reach_their_state(more_runs):
+    """The extra steps are not vacuous: the window's edge, each window type
+    and the band-pass change the published spectra, the reference's
+    deletion drops its trace, the out-of-grid clicks select different
+    pixels, and the image keeps the downscale's 6x4 cells of 3x3."""
+    names = [s[0] for s in STEPS_MORE]
+    snaps = more_runs["port"]
+
+    def at(name):
+        return snaps[names.index(name)][0]
+
+    for a, b in zip(names[1:6], names[2:7]):
+        assert not np.array_equal(at(a)["avg_signal_fft"], at(b)["avg_signal_fft"]), (a, b)
+    assert not np.array_equal(at("fd_bandpass_on")["filtered_signal_fft"],
+                              at("fd_bandpass_param")["filtered_signal_fft"])
+    assert set(at("rois_same_name")["roi_signal"]) == {"u1", "u2", "u3"}
+    assert set(at("delete_reference")["roi_signal"]) == {"u2", "u3"}
+    assert np.isfinite(at("rois_same_name")["refractive_index"][1:]).all()
+    assert not np.array_equal(at("click_past_right")["signal"], at("click_past_bottom")["signal"])
+    assert snaps[-1][1].shape == (18, 12)
+
+
+def _assert_same(jsnap, tsnap):
+    (jplot, jimg), (tplot, timg) = jsnap, tsnap
     np.testing.assert_allclose(timg, jimg, atol=ATOL, rtol=RTOL, err_msg="image")
     for name in _SERIES:
         j, t = jplot[name], tplot[name]

@@ -12,11 +12,12 @@ reference the port is tested against). Layout mirrors it module by module:
               ROI masks, optical properties, the one-pass spectral
               reduction (``ops/specred.py`` + ``csrc/specred.cu``), the
               FIR bank and the frequency-resolved Richardson-Lucy
-              deconvolution (``ops/deconvolution.py``, its kernel
-              ``ops/rlsep.py`` + ``csrc/rlsep.cu``), the 3-D voxel view
-              (``ops/voxel.py``, its kernel ``ops/envelope.py`` +
-              ``csrc/envelope.cu``) and the general 2-D Richardson-Lucy
-              kernel (``ops/rl2d.py`` + ``csrc/rl2d.cu``)
+              deconvolution (``ops/deconvolution.py``, its kernels
+              ``ops/rlsep.py`` + ``csrc/rlsep_cluster.cu`` and
+              ``csrc/rlsep.cu``), the 3-D voxel view (``ops/voxel.py``,
+              its kernel ``ops/envelope.py`` + ``csrc/envelope.cu``) and
+              the general 2-D Richardson-Lucy kernels (``ops/rl2d.py`` +
+              ``csrc/rl2d_cluster.cu`` and ``csrc/rl2d.cu``)
 ``pipeline``  stage protocol, filters, the per-stage executor, publish
               and the :class:`~thz_image_explorer_tpu_torch.pipeline.
               explorer.Explorer` command facade

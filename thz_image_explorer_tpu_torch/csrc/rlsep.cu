@@ -1,10 +1,10 @@
 // Separable Richardson-Lucy iterations over a stack of bands, for NVIDIA
 // Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels thz_image_explorer_tpu/ops/pallas_rl.py
-// :_sep_kernel (launched by rl_bands_separable) and, with group > 1,
-// :_sep_kernel_group (launched by rl_bands_separable_grouped: G bands per
-// program). Same function: for every band b, n_iter[b] times,
+// Replaces the Pallas TPU kernel thz_image_explorer_tpu/ops/pallas_rl.py
+// :_sep_kernel (launched by rl_bands_separable) for canvases whose estimate
+// no thread-block cluster holds (csrc/rlsep_cluster.cu takes the others).
+// Same function: for every band b, n_iter[b] times,
 //     u <- u * R^T (P / (R u C^T + 1e-12)) C
 // on the band's (h2, w2) reflect-padded canvas P, where R and C are the
 // banded correlation matrices of the band's row and column profiles:
@@ -25,11 +25,7 @@
 // What the design does about it. One launch per half-iteration covers all
 // bands still iterating (blockIdx.z = slot in a band order sorted by
 // descending n_iter, so the host launches exactly counts[it] bands at
-// iteration it and no block idles on a finished band; in group mode block z
-// takes the same tile of `group` consecutive bands of that order, one after
-// the other, so the grid covers ceil(counts[it] / group) slots and each
-// band's arithmetic is unchanged: the output is bit-identical to group 1).
-// The host loops over
+// iteration it and no block idles on a finished band). The host loops over
 // iterations with no device synchronization. Each block owns a tile of
 // kTileW columns x tile_h rows of one band: the row pass reads its source
 // rows straight from global memory (coalesced along the row; the whole
@@ -79,9 +75,7 @@ __device__ __forceinline__ void band_half(
   const float* pyb = py + (size_t)b * kc;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
 
-  // the band's reach: the largest |offset| of a non-zero tap. In group mode
-  // the sync after the reset also ends the previous band's reads of the
-  // strip and the taps.
+  // the band's reach: the largest |offset| of a non-zero tap
   if (tid < 2) reach[tid] = 0;
   __syncthreads();
   for (int i = tid; i < kr; i += kThreads)
@@ -135,42 +129,18 @@ __device__ __forceinline__ void band_half(
   }
 }
 
-// One half-iteration for the bands order[0 .. nb). Without GROUPED, block z
-// takes band order[z]. With GROUPED, block z takes the slots z * group ..
-// z * group + group - 1 (those below nb) one after the other on the same
-// tile; per band the arithmetic is the same, so the output is too.
-template <bool SECOND, bool GROUPED>
+// One half-iteration for the bands order[0 .. nb): block z takes band
+// order[z].
+template <bool SECOND>
 __global__ void __launch_bounds__(kThreads)
 rl_half(const float* __restrict__ src, const float* __restrict__ padded,
         float* __restrict__ dst, const float* __restrict__ px,
-        const float* __restrict__ py, const int* __restrict__ order, int nb, int group,
+        const float* __restrict__ py, const int* __restrict__ order,
         int h2, int w2, int kr, int kc, int tile_h, int strip_stride) {
   extern __shared__ float smem[];
   __shared__ int reach[2];
-  if (!GROUPED) {
-    band_half<SECOND>(order[blockIdx.z], src, padded, dst, px, py, h2, w2, kr, kc, tile_h,
-                      strip_stride, smem, reach);
-    return;
-  }
-  const int last = min(nb, (int)(blockIdx.z + 1) * group);
-  for (int slot = blockIdx.z * group; slot < last; ++slot)
-    band_half<SECOND>(order[slot], src, padded, dst, px, py, h2, w2, kr, kc, tile_h,
-                      strip_stride, smem, reach);
-}
-
-// the two halves of one iteration, launched on the kernels of one mode
-template <bool GROUPED>
-cudaError_t launch_iteration(dim3 grid, dim3 block, size_t bytes, cudaStream_t st, float* u,
-                             float* rel, const float* padded, const float* px,
-                             const float* py, const int* order, int nb, int group, int h2,
-                             int w2, int kr, int kc, int tile_h, int strip_stride) {
-  rl_half<false, GROUPED><<<grid, block, bytes, st>>>(u, padded, rel, px, py, order, nb, group,
-                                                      h2, w2, kr, kc, tile_h, strip_stride);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rl_half<true, GROUPED><<<grid, block, bytes, st>>>(rel, padded, u, px, py, order, nb, group,
-                                                     h2, w2, kr, kc, tile_h, strip_stride);
-  return cudaGetLastError();
+  band_half<SECOND>(order[blockIdx.z], src, padded, dst, px, py, h2, w2, kr, kc, tile_h,
+                    strip_stride, smem, reach);
 }
 
 size_t smem_bytes(int kr, int kc, int tile_h, int strip_stride) {
@@ -183,19 +153,16 @@ size_t smem_bytes(int kr, int kc, int tile_h, int strip_stride) {
 // starts it as a copy of padded); rel: (b, h2, w2) f32 scratch; padded:
 // (b, h2, w2) f32; px: (b, kr) f32; py: (b, kc) f32; order: (b,) int32 on
 // the device, the bands by descending n_iter; counts: HOST (it1,) int32,
-// counts[it] = number of bands with n_iter > it (non-increasing); group >= 1
-// bands of that order per block (the slots of a block run one after the
-// other; group 1 is the one-band-per-block launch, and every group size gives
-// the same bits). Runs iterations it0 .. it1-1, two launches each, on
+// counts[it] = number of bands with n_iter > it (non-increasing). Runs
+// iterations it0 .. it1-1, two launches each, on
 // `stream`; does not synchronize. Returns 0, or the CUDA error of the first
 // launch that was refused (cudaErrorInvalidValue for arguments it does not
 // take).
 extern "C" int thz_rlsep(void* u, void* rel, const void* padded, const void* px,
                          const void* py, const void* order, const int* counts,
                          int it0, int it1, int b, int h2, int w2, int kr, int kc,
-                         int group, void* stream) {
-  if (b < 1 || b > 65535 || h2 < 1 || w2 < 1 || kr < 1 || kc < 1 || it0 < 0 || it1 < it0 ||
-      group < 1)
+                         void* stream) {
+  if (b < 1 || b > 65535 || h2 < 1 || w2 < 1 || kr < 1 || kc < 1 || it0 < 0 || it1 < it0)
     return (int)cudaErrorInvalidValue;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -210,8 +177,7 @@ extern "C" int thz_rlsep(void* u, void* rel, const void* padded, const void* px,
   const size_t bytes = smem_bytes(kr, kc, tile_h, strip_stride);
   if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
-    const void* fns[] = {(const void*)rl_half<false, false>, (const void*)rl_half<true, false>,
-                         (const void*)rl_half<false, true>, (const void*)rl_half<true, true>};
+    const void* fns[] = {(const void*)rl_half<false>, (const void*)rl_half<true>};
     for (const void* fn : fns) {
       err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
       if (err != cudaSuccess) return (int)err;
@@ -228,13 +194,14 @@ extern "C" int thz_rlsep(void* u, void* rel, const void* padded, const void* px,
   for (int it = it0; it < it1; ++it) {
     const int nb = counts[it];
     if (nb < 1 || nb > b) return (int)cudaErrorInvalidValue;
-    const dim3 grid((w2 + kTileW - 1) / kTileW, (h2 + tile_h - 1) / tile_h,
-                    (nb + group - 1) / group);
-    err = group == 1
-              ? launch_iteration<false>(grid, block, bytes, st, uu, rr, pp, pxx, pyy, ord, nb,
-                                        group, h2, w2, kr, kc, tile_h, strip_stride)
-              : launch_iteration<true>(grid, block, bytes, st, uu, rr, pp, pxx, pyy, ord, nb,
-                                       group, h2, w2, kr, kc, tile_h, strip_stride);
+    const dim3 grid((w2 + kTileW - 1) / kTileW, (h2 + tile_h - 1) / tile_h, nb);
+    rl_half<false><<<grid, block, bytes, st>>>(uu, pp, rr, pxx, pyy, ord, h2, w2, kr, kc, tile_h,
+                                               strip_stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    rl_half<true><<<grid, block, bytes, st>>>(rr, pp, uu, pxx, pyy, ord, h2, w2, kr, kc, tile_h,
+                                              strip_stride);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

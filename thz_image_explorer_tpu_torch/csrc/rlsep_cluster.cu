@@ -41,6 +41,18 @@
 // f32 FMA on the CUDA cores, IEEE division (no --use_fast_math), no atomics
 // on data: reruns are bit-identical. The sums run in another order than
 // csrc/rlsep.cu's, so the two agree within rounding, not bit for bit.
+//
+// The grouped mode replaces :_sep_kernel_group (launched by
+// rl_bands_separable_grouped), which interleaves the serial chains of G
+// bands in one TPU program to hide each chain's latency. Here it is the G
+// instantiation of the same kernel: one cluster holds G consecutive slots
+// of the descending-n_iter order (their slabs, row tables, taps and
+// reaches; one strip), each half-iteration runs the G bands' halves back to
+// back, skipping a band past its own n_iter (the work, never the barrier),
+// and one cluster.sync() follows for all G. So the G bands share the
+// barriers, and one band's distributed-shared-memory reads can overlap
+// another's FMAs. Each band's arithmetic is half<>'s, so the output equals
+// the G = 1 kernel's bit for bit; G = 1 is the cluster route's own kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -65,22 +77,25 @@ constexpr int kPass = kSR * kStrips;  // rows per pass
 constexpr int kCB = 8;              // consecutive columns per thread in the axis-1 pass
 constexpr int kTile = 256;          // columns per tile: one a thread on axis 0, 8 warps x 32 on axis 1
 constexpr int kMaxCluster = 16;
-constexpr size_t kStaticBytes = 2 * sizeof(int);  // rl_cluster's reach[2]
+constexpr int kMaxGroup = 8;                               // bands a cluster holds
+constexpr size_t kStaticBytesPerBand = 2 * sizeof(int);    // rl_cluster's reach[2 G]
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Shared memory of one CTA: two tables of nwin row pointers (u, rel: each
-// row of the CTA's halo window in its owner's slab), then floats: four tap
-// arrays (rows and columns, each plain and mirrored), the u and rel slabs
-// (rows x ws, ws = 1 mod 32 so the epilogue's 8 rows x 4 column groups hit
-// 32 banks), the strip (tcols columns of kPass + 1 floats, column-major)
-// and one zero row; the static reach[2] last.
+// Shared memory of one CTA holding g bands: per band two tables of nwin row
+// pointers (u, rel: each row of the CTA's halo window in its owner's slab),
+// then floats: per band four tap arrays (rows and columns, each plain and
+// mirrored), per band the u and rel slabs (rows x ws, ws = 1 mod 32 so the
+// epilogue's 8 rows x 4 column groups hit 32 banks), the strip (tcols
+// columns of kPass + 1 floats, column-major) and one zero row; the static
+// reach[2 g] last. Band i's tables, taps and slabs sit i strides after band
+// 0's; at g = 1 this is the cluster route's layout.
 struct Layout {
   int rows, ws, hr, hc, nwin, tlr, tlc, tcols;
-  size_t slab_u, slab_rel, strip, zero, bytes;  // float offsets; total bytes
+  size_t taps, slab_u, slab_rel, slabs, strip, zero, bytes;  // float offsets; total bytes
 };
 
-__host__ __device__ inline Layout layout(int h2, int w2, int kr, int kc, int s) {
+__host__ __device__ inline Layout layout(int h2, int w2, int kr, int kc, int s, int g) {
   Layout l;
   l.rows = (h2 + s - 1) / s;
   l.ws = w2 + ((1 - w2) % 32 + 32) % 32;
@@ -90,12 +105,14 @@ __host__ __device__ inline Layout layout(int h2, int w2, int kr, int kc, int s) 
   l.tlr = round_up(2 * l.hr + 3 * kSR, 4);
   l.tlc = round_up(2 * l.hc + 3 * kCB, 4);
   l.tcols = 2 * l.hc + w2 + 2 * kCB;
-  l.slab_u = 2 * (size_t)l.tlr + 2 * (size_t)l.tlc;
+  l.taps = 2 * (size_t)l.tlr + 2 * (size_t)l.tlc;  // a band's stride of taps
+  l.slabs = 2 * (size_t)l.rows * l.ws;               // a band's stride of slabs
+  l.slab_u = g * l.taps;
   l.slab_rel = l.slab_u + (size_t)l.rows * l.ws;
-  l.strip = l.slab_rel + (size_t)l.rows * l.ws;
+  l.strip = l.slab_u + g * l.slabs;
   l.zero = l.strip + (size_t)l.tcols * (kPass + 1);
-  l.bytes = 2 * (size_t)l.nwin * sizeof(float*) + sizeof(float) * (l.zero + l.ws) +
-            kStaticBytes;
+  l.bytes = 2 * (size_t)g * l.nwin * sizeof(float*) + sizeof(float) * (l.zero + l.ws) +
+            g * kStaticBytesPerBand;
   return l;
 }
 
@@ -118,7 +135,7 @@ struct Args {
   const float* py;
   const int* order;   // band slots by descending n_iter
   const int* n_iter;  // by band
-  int it0, it1, h2, w2, kr, kc, s;
+  int nb, it0, it1, h2, w2, kr, kc, s;
 };
 
 // acc[i] += sum_m t[m - i] v(m) for m in [0, m_end), with tq[k] = t[k - K]
@@ -219,104 +236,224 @@ __device__ __forceinline__ void half(const float* const* rows, float* dst, const
   }
 }
 
+// Cluster y holds the slots G y .. G y + G - 1 of the descending order,
+// those below nb (the bands with n_iter > it0).
+template <int G>
 __global__ void __launch_bounds__(kThreads) rl_cluster(Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int reach[2];
-  const Layout L = layout(a.h2, a.w2, a.kr, a.kc, a.s);
+  __shared__ int reach[2 * G];
+  const Layout L = layout(a.h2, a.w2, a.kr, a.kc, a.s, G);
   const float** rows_u = reinterpret_cast<const float**>(smem_raw);
-  const float** rows_rel = rows_u + L.nwin;
-  float* fs = reinterpret_cast<float*>(rows_rel + L.nwin);
-  float* tr_a = fs;
-  float* tr_b = tr_a + L.tlr;
-  float* tc_a = tr_b + L.tlr;
-  float* tc_b = tc_a + L.tlc;
-  float* su = fs + L.slab_u;
-  float* srel = fs + L.slab_rel;
+  const float** rows_rel = rows_u + G * L.nwin;
+  float* fs = reinterpret_cast<float*>(rows_rel + G * L.nwin);
   float* strip = fs + L.strip;
   float* zero = fs + L.zero;
 
   const int tid = threadIdx.x;
   const int q = (int)cluster.block_rank();
-  const int band = a.order[blockIdx.y];
-  const int n_it = min(a.it1, a.n_iter[band]) - a.it0;
   const int h2 = a.h2, w2 = a.w2, kr = a.kr, kc = a.kc;
   int lo, n;
   slab(h2, a.s, q, lo, n);
-  const float* pxb = a.px + (size_t)band * kr;
-  const float* pyb = a.py + (size_t)band * kc;
   const size_t plane = (size_t)h2 * w2;
-  float* ub = a.u + (size_t)band * plane + (size_t)lo * w2;
-  const float* pb = a.padded + (size_t)band * plane + (size_t)lo * w2;
-
-  // the band's reach: the largest |offset| of a non-zero tap
-  if (tid < 2) reach[tid] = 0;
-  __syncthreads();
-  for (int i = tid; i < kr; i += kThreads)
-    if (pxb[i] != 0.0f) atomicMax(&reach[0], abs(i - kr / 2));
-  for (int i = tid; i < kc; i += kThreads)
-    if (pyb[i] != 0.0f) atomicMax(&reach[1], abs(i - kc / 2));
-  __syncthreads();
-  const int hr = reach[0], hc = reach[1];
-
-  // taps, zero-padded: tq[k] holds the tap at offset d = k - K - h (the
-  // mirrored array the tap at -d), zero outside the profile
-  for (int k = tid; k < L.tlr; k += kThreads) {
-    const int d = k - kSR - hr;
-    const bool in = d >= -hr && d <= hr;
-    const int ia = kr / 2 + d, ib = kr / 2 - d;
-    tr_a[k] = in && ia >= 0 && ia < kr ? pxb[ia] : 0.0f;
-    tr_b[k] = in && ib >= 0 && ib < kr ? pxb[ib] : 0.0f;
+  // the group's bands and their iterations in this launch (0 for a slot
+  // past nb); the first slot has the most
+  int band[G], n_it[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int slot = blockIdx.y * G + g;
+    band[g] = slot < a.nb ? a.order[slot] : -1;
+    n_it[g] = band[g] < 0 ? 0 : min(a.it1, a.n_iter[band[g]]) - a.it0;
   }
-  for (int k = tid; k < L.tlc; k += kThreads) {
-    const int d = k - kCB - hc;
-    const bool in = d >= -hc && d <= hc;
-    const int ia = kc / 2 + d, ib = kc / 2 - d;
-    tc_a[k] = in && ia >= 0 && ia < kc ? pyb[ia] : 0.0f;
-    tc_b[k] = in && ib >= 0 && ib < kc ? pyb[ib] : 0.0f;
+
+  // each band's reach: the largest |offset| of a non-zero tap
+  if (tid < 2 * G) reach[tid] = 0;
+  __syncthreads();
+#pragma unroll 1
+  for (int g = 0; g < G; ++g) {
+    if (band[g] < 0) continue;
+    const float* pxb = a.px + (size_t)band[g] * kr;
+    const float* pyb = a.py + (size_t)band[g] * kc;
+    for (int i = tid; i < kr; i += kThreads)
+      if (pxb[i] != 0.0f) atomicMax(&reach[2 * g], abs(i - kr / 2));
+    for (int i = tid; i < kc; i += kThreads)
+      if (pyb[i] != 0.0f) atomicMax(&reach[2 * g + 1], abs(i - kc / 2));
   }
-  // the halo window's row tables: canvas row lo - L.hr + w lives in its
-  // owner's slab; rows outside the canvas read the zero row
-  for (int w = tid; w < L.nwin; w += kThreads) {
-    const int j = lo - L.hr + w;
-    if (j < 0 || j >= h2) {
-      rows_u[w] = zero;
-      rows_rel[w] = zero;
-    } else {
-      const int o = owner(h2, a.s, j);
-      int olo, on;
-      slab(h2, a.s, o, olo, on);
-      const size_t off = (size_t)(j - olo) * L.ws;
-      rows_u[w] = cluster.map_shared_rank(su, o) + off;
-      rows_rel[w] = cluster.map_shared_rank(srel, o) + off;
+  __syncthreads();
+
+#pragma unroll 1
+  for (int g = 0; g < G; ++g) {
+    if (band[g] < 0) continue;
+    const int hr = reach[2 * g], hc = reach[2 * g + 1];
+    const float* pxb = a.px + (size_t)band[g] * kr;
+    const float* pyb = a.py + (size_t)band[g] * kc;
+    float* tr_a = fs + g * L.taps;
+    float* tr_b = tr_a + L.tlr;
+    float* tc_a = tr_b + L.tlr;
+    float* tc_b = tc_a + L.tlc;
+    float* su = fs + L.slab_u + g * L.slabs;
+    float* srel = fs + L.slab_rel + g * L.slabs;
+    // taps, zero-padded: tq[k] holds the tap at offset d = k - K - h (the
+    // mirrored array the tap at -d), zero outside the profile
+    for (int k = tid; k < L.tlr; k += kThreads) {
+      const int d = k - kSR - hr;
+      const bool in = d >= -hr && d <= hr;
+      const int ia = kr / 2 + d, ib = kr / 2 - d;
+      tr_a[k] = in && ia >= 0 && ia < kr ? pxb[ia] : 0.0f;
+      tr_b[k] = in && ib >= 0 && ib < kr ? pxb[ib] : 0.0f;
     }
+    for (int k = tid; k < L.tlc; k += kThreads) {
+      const int d = k - kCB - hc;
+      const bool in = d >= -hc && d <= hc;
+      const int ia = kc / 2 + d, ib = kc / 2 - d;
+      tc_a[k] = in && ia >= 0 && ia < kc ? pyb[ia] : 0.0f;
+      tc_b[k] = in && ib >= 0 && ib < kc ? pyb[ib] : 0.0f;
+    }
+    // the halo window's row tables: canvas row lo - L.hr + w lives in its
+    // owner's slab; rows outside the canvas read the zero row
+    const float** ru = rows_u + g * L.nwin;
+    const float** rr = rows_rel + g * L.nwin;
+    for (int w = tid; w < L.nwin; w += kThreads) {
+      const int j = lo - L.hr + w;
+      if (j < 0 || j >= h2) {
+        ru[w] = zero;
+        rr[w] = zero;
+      } else {
+        const int o = owner(h2, a.s, j);
+        int olo, on;
+        slab(h2, a.s, o, olo, on);
+        const size_t off = (size_t)(j - olo) * L.ws;
+        ru[w] = cluster.map_shared_rank(su, o) + off;
+        rr[w] = cluster.map_shared_rank(srel, o) + off;
+      }
+    }
+    const float* ub = a.u + (size_t)band[g] * plane + (size_t)lo * w2;
+    for (int l = 0; l < n; ++l)
+      for (int c = tid; c < w2; c += kThreads) su[(size_t)l * L.ws + c] = ub[(size_t)l * w2 + c];
   }
   for (int i = tid; i < L.ws; i += kThreads) zero[i] = 0.0f;
   for (int i = tid; i < L.tcols * (kPass + 1); i += kThreads) strip[i] = 0.0f;
-  for (int l = 0; l < n; ++l)
-    for (int c = tid; c < w2; c += kThreads) su[(size_t)l * L.ws + c] = ub[(size_t)l * w2 + c];
   // every slab loaded, and every CTA of the cluster running, before any
   // remote read
   cluster.sync();
 
-  for (int it = 0; it < n_it; ++it) {
-    half<false>(rows_u, srel, pb, tr_a, tc_a, strip, n, hr, hc, L, w2);
+  // the G bands' halves back to back, one barrier after each half for all
+  // of them; a band past its own n_iter skips its work, not the barrier
+  for (int it = 0; it < n_it[0]; ++it) {
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      if (it < n_it[g]) {
+        const float* pb = a.padded + (size_t)band[g] * plane + (size_t)lo * w2;
+        const float* tr = fs + g * L.taps;
+        half<false>(rows_u + g * L.nwin, fs + L.slab_rel + g * L.slabs, pb, tr,
+                    tr + 2 * L.tlr, strip, n, reach[2 * g], reach[2 * g + 1], L, w2);
+      }
+    }
     cluster.sync();
-    half<true>(rows_rel, su, pb, tr_b, tc_b, strip, n, hr, hc, L, w2);
+#pragma unroll 1
+    for (int g = 0; g < G; ++g) {
+      if (it < n_it[g]) {
+        const float* pb = a.padded + (size_t)band[g] * plane + (size_t)lo * w2;
+        const float* tr = fs + g * L.taps;
+        half<true>(rows_rel + g * L.nwin, fs + L.slab_u + g * L.slabs, pb, tr + L.tlr,
+                   tr + 2 * L.tlr + L.tlc, strip, n, reach[2 * g], reach[2 * g + 1], L, w2);
+      }
+    }
     // also keeps this CTA's slabs alive until the others have read them
     cluster.sync();
   }
-  for (int l = 0; l < n; ++l)
-    for (int c = tid; c < w2; c += kThreads) ub[(size_t)l * w2 + c] = su[(size_t)l * L.ws + c];
+#pragma unroll 1
+  for (int g = 0; g < G; ++g) {
+    if (band[g] < 0) continue;
+    const float* su = fs + L.slab_u + g * L.slabs;
+    float* ub = a.u + (size_t)band[g] * plane + (size_t)lo * w2;
+    for (int l = 0; l < n; ++l)
+      for (int c = tid; c < w2; c += kThreads) ub[(size_t)l * w2 + c] = su[(size_t)l * L.ws + c];
+  }
+}
+
+template <int G>
+cudaError_t launch(const Args& a, int dynamic, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(rl_cluster<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(rl_cluster<G>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.s, (a.nb + G - 1) / G, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dynamic;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.s;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, rl_cluster<G>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+int launch_group(void* u, const void* padded, const void* px, const void* py, const void* order,
+                 const void* n_iter, int nb, int it0, int it1, int b, int h2, int w2, int kr,
+                 int kc, int s, int g, void* stream) {
+  if (b < 1 || nb < 1 || nb > b || h2 < 1 || w2 < 1 || kr < 1 || kc < 1 || it0 < 0 ||
+      it1 <= it0 || s < 1 || s > kMaxCluster || s > h2 || g < 1 || g > kMaxGroup ||
+      (nb + g - 1) / g > 65535)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = layout(h2, w2, kr, kc, s, g).bytes;
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const int dynamic = (int)(bytes - g * kStaticBytesPerBand);
+
+  Args a;
+  a.u = static_cast<float*>(u);
+  a.padded = static_cast<const float*>(padded);
+  a.px = static_cast<const float*>(px);
+  a.py = static_cast<const float*>(py);
+  a.order = static_cast<const int*>(order);
+  a.n_iter = static_cast<const int*>(n_iter);
+  a.nb = nb;
+  a.it0 = it0;
+  a.it1 = it1;
+  a.h2 = h2;
+  a.w2 = w2;
+  a.kr = kr;
+  a.kc = kc;
+  a.s = s;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (g) {
+    case 1: err = launch<1>(a, dynamic, st); break;
+    case 2: err = launch<2>(a, dynamic, st); break;
+    case 3: err = launch<3>(a, dynamic, st); break;
+    case 4: err = launch<4>(a, dynamic, st); break;
+    case 5: err = launch<5>(a, dynamic, st); break;
+    case 6: err = launch<6>(a, dynamic, st); break;
+    case 7: err = launch<7>(a, dynamic, st); break;
+    default: err = launch<8>(a, dynamic, st); break;
+  }
+  return (int)err;
 }
 
 }  // namespace
 
 // Shared-memory bytes of one CTA at cluster size s, static and dynamic
-// (the wrapper's routing rule computes the same in Python).
+// (the wrapper's routing rule computes the same in Python); with g bands a
+// cluster, the grouped mode's.
 extern "C" long long thz_rlsep_cluster_smem(int h2, int w2, int kr, int kc, int s) {
   if (h2 < 1 || w2 < 1 || kr < 1 || kc < 1 || s < 1) return -1;
-  return (long long)layout(h2, w2, kr, kc, s).bytes;
+  return (long long)layout(h2, w2, kr, kc, s, 1).bytes;
+}
+
+extern "C" long long thz_rlsep_grouped_smem(int h2, int w2, int kr, int kc, int s, int g) {
+  if (h2 < 1 || w2 < 1 || kr < 1 || kc < 1 || s < 1 || g < 1) return -1;
+  return (long long)layout(h2, w2, kr, kc, s, g).bytes;
 }
 
 // u: (b, h2, w2) f32, the running estimate, updated in place (the caller
@@ -331,50 +468,16 @@ extern "C" long long thz_rlsep_cluster_smem(int h2, int w2, int kr, int kc, int 
 extern "C" int thz_rlsep_cluster(void* u, const void* padded, const void* px, const void* py,
                                  const void* order, const void* n_iter, int nb, int it0, int it1,
                                  int b, int h2, int w2, int kr, int kc, int s, void* stream) {
-  if (b < 1 || nb < 1 || nb > b || nb > 65535 || h2 < 1 || w2 < 1 || kr < 1 || kc < 1 ||
-      it0 < 0 || it1 <= it0 || s < 1 || s > kMaxCluster || s > h2)
-    return (int)cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t bytes = layout(h2, w2, kr, kc, s).bytes;
-  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
-  const int dynamic = (int)(bytes - kStaticBytes);
-  err = cudaFuncSetAttribute(rl_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(rl_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
+  return launch_group(u, padded, px, py, order, n_iter, nb, it0, it1, b, h2, w2, kr, kc, s, 1,
+                      stream);
+}
 
-  Args a;
-  a.u = static_cast<float*>(u);
-  a.padded = static_cast<const float*>(padded);
-  a.px = static_cast<const float*>(px);
-  a.py = static_cast<const float*>(py);
-  a.order = static_cast<const int*>(order);
-  a.n_iter = static_cast<const int*>(n_iter);
-  a.it0 = it0;
-  a.it1 = it1;
-  a.h2 = h2;
-  a.w2 = w2;
-  a.kr = kr;
-  a.kc = kc;
-  a.s = s;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(s, nb, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = dynamic;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = s;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, rl_cluster, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+// The grouped mode: as thz_rlsep_cluster with g (1..8) consecutive slots of
+// the order a cluster, ceil(nb / g) clusters.
+extern "C" int thz_rlsep_grouped(void* u, const void* padded, const void* px, const void* py,
+                                 const void* order, const void* n_iter, int nb, int it0, int it1,
+                                 int b, int h2, int w2, int kr, int kc, int s, int g,
+                                 void* stream) {
+  return launch_group(u, padded, px, py, order, n_iter, nb, it0, it1, b, h2, w2, kr, kc, s, g,
+                      stream);
 }

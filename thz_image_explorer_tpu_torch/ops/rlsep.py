@@ -33,11 +33,14 @@ two kernels, chosen from the shapes alone before any launch
 A refused launch raises; nothing falls back to the other route or to the
 plain version.
 
-:func:`rl_bands_separable_grouped` is the same function on the tiled
-kernel with ``group`` bands per kernel block (port of
+:func:`rl_bands_separable_grouped` is the same function on the cluster
+kernel with ``group`` bands per cluster (port of
 ``pallas_rl.py:rl_bands_separable_grouped``, the JAX package's G-band
-interleave): on the card its output at every group size equals its output
-at group 1 bit for bit. No production path calls it.
+interleave): the G bands' half-iterations run back to back between shared
+cluster barriers (:func:`grouped_plan`, :func:`grouped_smem_bytes`), and on
+the card its output equals :func:`rl_bands_separable`'s cluster route bit
+for bit. A group that does not fit 16 CTAs raises. No production path calls
+it.
 
 Both :func:`rl_bands_separable` and the plain version take
 ``between(done, total) -> bool``, called on the host before each
@@ -66,8 +69,10 @@ MAX_CLUSTER = 16
 #: the cluster size the cluster route takes where it fits (measured against
 #: 8 at the reference Apply; PERF.md)
 PREFERRED_CLUSTER = 16
+#: the most bands one cluster of the grouped mode holds (kMaxGroup)
+MAX_GROUP = 8
 # csrc/rlsep_cluster.cu's strip height, rows per pass and axis-1 block
-# (kSR, kPass, kCB) and its static shared memory (reach[2])
+# (kSR, kPass, kCB) and its static shared memory per band (reach[2])
 _SR, _PASS, _CB = 8, 16, 8
 _STATIC_SMEM = 8
 
@@ -138,37 +143,58 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def cluster_smem_bytes(h2: int, w2: int, kr: int, kc: int, s: int) -> int:
-    """Shared memory of one CTA of the cluster route (``layout`` in
-    ``csrc/rlsep_cluster.cu``, plus its static bytes): the u and rel slabs of
-    ``ceil(h2 / s)`` rows, the strip, the taps and the halo window's row
-    tables. ``thz_rlsep_cluster_smem`` of the built library returns the
-    same."""
+def grouped_smem_bytes(h2: int, w2: int, kr: int, kc: int, s: int, g: int) -> int:
+    """Shared memory of one CTA of a cluster holding ``g`` bands (``layout``
+    in ``csrc/rlsep_cluster.cu``, plus its static bytes): per band the u and
+    rel slabs of ``ceil(h2 / s)`` rows, the taps, the halo window's row
+    tables and the reach; one strip and one zero row.
+    ``thz_rlsep_grouped_smem`` of the built library returns the same."""
     rows = -(-h2 // s)
     ws = w2 + (1 - w2) % 32
     hr, hc = kr // 2, kc // 2
     nwin = rows + 2 * hr + 3 * _SR
     taps = 2 * _round_up(2 * hr + 3 * _SR, 4) + 2 * _round_up(2 * hc + 3 * _CB, 4)
     strip = (2 * hc + w2 + 2 * _CB) * (_PASS + 1)
-    floats = taps + 2 * rows * ws + strip + ws
-    return 2 * nwin * 8 + 4 * floats + _STATIC_SMEM
+    floats = g * (taps + 2 * rows * ws) + strip + ws
+    return g * (2 * nwin * 8 + _STATIC_SMEM) + 4 * floats
+
+
+def cluster_smem_bytes(h2: int, w2: int, kr: int, kc: int, s: int) -> int:
+    """Shared memory of one CTA of the cluster route: one band a cluster.
+    ``thz_rlsep_cluster_smem`` of the built library returns the same."""
+    return grouped_smem_bytes(h2, w2, kr, kc, s, 1)
+
+
+def grouped_fits(h2: int, w2: int, kr: int, kc: int, s: int, g: int) -> bool:
+    return 1 <= g <= MAX_GROUP and 1 <= s <= min(h2, MAX_CLUSTER) and \
+        grouped_smem_bytes(h2, w2, kr, kc, s, g) <= SMEM_PER_BLOCK
 
 
 def cluster_fits(h2: int, w2: int, kr: int, kc: int, s: int) -> bool:
-    return 1 <= s <= min(h2, MAX_CLUSTER) and \
-        cluster_smem_bytes(h2, w2, kr, kc, s) <= SMEM_PER_BLOCK
+    return grouped_fits(h2, w2, kr, kc, s, 1)
 
 
-def cluster_size_for(h2: int, w2: int, kr: int, kc: int) -> Optional[int]:
-    """The routing rule, from the shapes alone: the cluster size of the
-    cluster route, :data:`PREFERRED_CLUSTER` or, where the estimate needs
-    more CTAs, the smallest size that holds it (never above the canvas's
-    rows); None when not even :data:`MAX_CLUSTER` CTAs hold it, and the
-    tiled route runs."""
+def cluster_size_for(h2: int, w2: int, kr: int, kc: int, group: int = 1) -> Optional[int]:
+    """The routing rule, from the shapes alone: the cluster size for
+    ``group`` bands a cluster, :data:`PREFERRED_CLUSTER` or, where they need
+    more CTAs, the smallest size that holds them (never above the canvas's
+    rows); None when not even :data:`MAX_CLUSTER` CTAs hold them. At group
+    1 that is the cluster route's size, and None sends a canvas to the
+    tiled route."""
     for s in range(1, MAX_CLUSTER + 1):
-        if cluster_fits(h2, w2, kr, kc, s):
+        if grouped_fits(h2, w2, kr, kc, s, group):
             return max(s, min(PREFERRED_CLUSTER, h2))
     return None
+
+
+def grouped_plan(n_iter, group: int) -> list[tuple[int, int, list[list[int]]]]:
+    """The grouped mode's launches: ``(i0, i1, clusters)`` per entry of
+    :func:`launch_schedule`, where cluster ``c`` holds the bands in slots
+    ``c * group .. c * group + group - 1`` of the descending-``n_iter`` order
+    that still iterate (``ceil(nb / group)`` clusters)."""
+    order = np.argsort(-np.asarray(n_iter), kind="stable")
+    return [(i0, i1, [order[c: min(c + group, nb)].tolist() for c in range(0, nb, group)])
+            for i0, i1, nb in launch_schedule(n_iter)]
 
 
 def banded_matrix(prof: torch.Tensor, size: int) -> torch.Tensor:
@@ -228,8 +254,7 @@ def rl_bands_separable(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     # current device: make it padded's
     with torch.cuda.device(padded.device):
         if s is None:
-            return _run_kernel(padded, px, py, n_iter, between, counter=rl_bands_separable,
-                               attr="launches_tiled")
+            return _run_tiled(padded, px, py, n_iter, between)
         return _run_cluster(padded, px, py, n_iter, between, s)
 
 
@@ -239,21 +264,27 @@ rl_bands_separable.launches_tiled = 0
 
 def rl_bands_separable_grouped(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
                                n_iter, *, group: int = 2) -> torch.Tensor:
-    """The tiled kernel with ``group`` bands per kernel block: the same
-    operands and function as :func:`rl_bands_separable`, ``B % group == 0``;
-    group 1 is the tiled route's own launch. On a CPU tensor it runs
-    :func:`rl_bands_separable_plain`. ``rl_bands_separable_grouped.launches``
-    counts its kernel launches (two per iteration)."""
+    """The cluster kernel with ``group`` bands a cluster: the same operands
+    and function as :func:`rl_bands_separable`, ``B % group == 0``. On a CPU
+    tensor it runs :func:`rl_bands_separable_plain`; on any other it raises
+    ``ValueError`` before any launch where ``group`` bands of the canvas do
+    not fit :data:`MAX_CLUSTER` CTAs (:func:`grouped_fits`).
+    ``rl_bands_separable_grouped.launches`` counts its kernel launches (one
+    per non-empty checkpoint group, as :func:`launch_schedule`)."""
     n_iter = _check(padded, px, py, n_iter)
-    if group < 1 or padded.shape[0] % group != 0:
-        raise ValueError(f"B = {padded.shape[0]} is not a multiple of group = {group}")
+    b, h2, w2 = padded.shape
+    if group < 1 or b % group != 0:
+        raise ValueError(f"B = {b} is not a multiple of group = {group}")
     if padded.device.type == "cpu":
         return rl_bands_separable_plain(padded, px, py, n_iter)
+    s = cluster_size_for(h2, w2, px.shape[1], py.shape[1], group)
+    if s is None:
+        raise ValueError(f"{group} bands of a {h2}x{w2} canvas with {px.shape[1]}x"
+                         f"{py.shape[1]} taps do not fit a cluster of {MAX_CLUSTER} CTAs")
     if padded.device.type != "cuda":
         raise ValueError(f"no Richardson-Lucy kernel for device {padded.device}")
     with torch.cuda.device(padded.device):
-        return _run_kernel(padded, px, py, n_iter, None, group=group,
-                           counter=rl_bands_separable_grouped)
+        return _run_cluster(padded, px, py, n_iter, None, s, group)
 
 
 rl_bands_separable_grouped.launches = 0
@@ -263,7 +294,7 @@ def _library() -> ctypes.CDLL:
     lib = kernels.load("rlsep")
     fn = lib.thz_rlsep
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -274,12 +305,22 @@ def _cluster_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.thz_rlsep_grouped.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        lib.thz_rlsep_grouped.restype = ctypes.c_int
         lib.thz_rlsep_cluster_smem.argtypes = [ctypes.c_int] * 5
         lib.thz_rlsep_cluster_smem.restype = ctypes.c_longlong
+        lib.thz_rlsep_grouped_smem.argtypes = [ctypes.c_int] * 6
+        lib.thz_rlsep_grouped_smem.restype = ctypes.c_longlong
     return lib
 
 
-def _run_cluster(padded, px, py, n_iter, between: Between, s: int):
+def _run_cluster(padded, px, py, n_iter, between: Between, s: int,
+                 group: Optional[int] = None):
+    """The cluster route's launches (``thz_rlsep_cluster``, counted by
+    ``rl_bands_separable.launches``) or, with ``group``, the grouped mode's
+    (``thz_rlsep_grouped``, ``group`` bands a cluster, counted by
+    ``rl_bands_separable_grouped.launches``)."""
     lib = _cluster_library()
     b, h2, w2 = padded.shape
     # bands by descending trip count: a launch from i0 runs the first nb
@@ -295,18 +336,21 @@ def _run_cluster(padded, px, py, n_iter, between: Between, s: int):
         nb = int((n_iter > i0).sum())
         if nb == 0:
             continue
-        err = lib.thz_rlsep_cluster(
-            u.data_ptr(), padded.data_ptr(), px.data_ptr(), py.data_ptr(), order.data_ptr(),
-            n_iter_dev.data_ptr(), nb, i0, i1, b, h2, w2, px.shape[1], py.shape[1], s, stream,
-        )
+        args = (u.data_ptr(), padded.data_ptr(), px.data_ptr(), py.data_ptr(), order.data_ptr(),
+                n_iter_dev.data_ptr(), nb, i0, i1, b, h2, w2, px.shape[1], py.shape[1], s)
+        if group is None:
+            err = lib.thz_rlsep_cluster(*args, stream)
+            counter = rl_bands_separable
+        else:
+            err = lib.thz_rlsep_grouped(*args, group, stream)
+            counter = rl_bands_separable_grouped
         if err != 0:
             raise RuntimeError(f"rlsep_cluster kernel launch failed: CUDA error {err}")
-        rl_bands_separable.launches += 1
+        counter.launches += 1
     return u
 
 
-def _run_kernel(padded, px, py, n_iter, between: Between, *, group: int = 1,
-                counter, attr: str = "launches"):
+def _run_tiled(padded, px, py, n_iter, between: Between):
     lib = _library()
     b, h2, w2 = padded.shape
     max_iter = int(n_iter.max(initial=0))
@@ -329,9 +373,9 @@ def _run_kernel(padded, px, py, n_iter, between: Between, *, group: int = 1,
         err = lib.thz_rlsep(
             u.data_ptr(), rel.data_ptr(), padded.data_ptr(), px.data_ptr(),
             py.data_ptr(), order_dev.data_ptr(), counts.ctypes.data, i0, i1,
-            b, h2, w2, px.shape[1], py.shape[1], group, stream,
+            b, h2, w2, px.shape[1], py.shape[1], stream,
         )
         if err != 0:
             raise RuntimeError(f"rlsep kernel launch failed: CUDA error {err}")
-        setattr(counter, attr, getattr(counter, attr) + 2 * (i1 - i0))
+        rl_bands_separable.launches_tiled += 2 * (i1 - i0)
     return u
