@@ -17,8 +17,17 @@ a 3-D view of the deconvolved scan; both separable Richardson-Lucy routes
 general 2-D kernel (the cluster kernel and the tiled one) and the grouped
 cluster kernel on the Apply's own inputs and ragged ones; then the
 same commands, the 3-D view and SaveVTU on a small scan on the card and on
-the CPU; and finally a 512x512x1024 scan with one live 3-D view. Each phase
-prints one JSON line; the script exits
+the CPU; then tilt compensation on the reference scan (tilts of 2 and 3
+degrees: T = 1488 and 1606, slider steps, clicks and tilt steps, a live
+view on the envelope's plain-load route, an Apply after tilt, the kernels
+at the new F and T, card vs CPU on a small tilted scan); the PSF tool on
+knife-edge traces of the reference fixture's shape (300 x 1001, 20 bands),
+its PSF exported, loaded and applied; a reference pulse loaded as the
+optical reference, and skipped once a tilt changes the bin count; and
+finally a 512x512x1024 scan with one live 3-D view. Each of the tilt, PSF
+tool and open_ref paths is driven with every kernel's launch count set to
+0 just before it and read just after. Each phase prints one JSON line; the
+script exits
 non-zero as soon as a phase fails, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -95,6 +104,31 @@ def synthetic_scan(width, height, n_time, dt=0.05, seed=0):
     cube += 0.01 * rng.standard_normal(cube.shape, dtype=np.float32)
     cube += np.float32(0.03)
     return t, cube
+
+
+def knife_edge_traces(n_pos=300, n_time=1001, dt=0.05, seed=0, width_scale=1.0):
+    """A double-knife-edge measurement of one axis, the reference fixture's
+    shape (300 positions x 1001 samples): positions over +-7.5 mm, the
+    transmitted intensity an erf in the distance from the edges at -2.0 and
+    +2.3 mm whose width falls with frequency, w(f) = (0.7 / f + 1.2) mm
+    times ``width_scale``, carried by a pulse of 16 components over
+    0.15-4 THz, plus noise. Returns (positions (P,), traces (P, T), time
+    (T,)) as float64."""
+    from scipy.special import erf
+
+    rng = np.random.default_rng(seed)
+    pos = np.linspace(-7.5, 7.5, n_pos)
+    t = np.arange(n_time) * dt
+    dist = np.where(pos < 0, -pos - 2.0, pos - 2.3)
+    traces = np.zeros((n_pos, n_time))
+    for f in np.geomspace(0.15, 4.0, 16):
+        w = width_scale * (0.7 / f + 1.2)
+        amp = np.sqrt((1.0 + erf(np.sqrt(2.0) * dist / w)) / 2.0)
+        carrier = np.exp(-((t - 12.0) ** 2) / (2 * (1.5 / f) ** 2)) * np.sin(
+            2 * np.pi * f * (t - 12.0))
+        traces += amp[:, None] * carrier[None, :]
+    traces += 1e-4 * rng.standard_normal(traces.shape)
+    return pos, traces, t
 
 
 def memory_rate(name: str) -> float:
@@ -1186,6 +1220,372 @@ def check_grouped(padded, px, py, n_iter, group, ref, label):
     assert launches == len(rlsep.launch_schedule(n_iter)), (label, group, launches)
     return launches
 
+# ------------------------------------------------------------ tilt, PSF tool
+TILT = "tilt_compensation"
+DEC = "deconvolution"
+#: card vs CPU port, PSF-tool fits (cuFFT vs pocketfft, both float64): the
+#: fitted (x0, w) per band and the fitted curves, mm
+_PSF_CPU_ATOL = 1e-6
+
+
+def command_ms(cmd, counter=None):
+    """Host ms of one command with a synchronize on each side, and the
+    launches ``counter()`` (the sum of the wrappers' counts) grew by."""
+    import torch
+
+    before = counter() if counter else 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cmd()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, (counter() - before if counter else 0)
+
+
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+
+    sr.spectral_reduction_sums.launches = 0
+    env.envelope.launches = 0
+    rlsep.rl_bands_separable.launches = 0
+    rlsep.rl_bands_separable.launches_tiled = 0
+    rlsep.rl_bands_separable_grouped.launches = 0
+    rl2d.richardson_lucy_direct.launches = 0
+    rl2d.richardson_lucy_direct.launches_tiled = 0
+
+
+def read_counts():
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+
+    return dict(specred=sr.spectral_reduction_sums.launches,
+                envelope=env.envelope.launches,
+                rlsep_cluster=rlsep.rl_bands_separable.launches,
+                rlsep=rlsep.rl_bands_separable.launches_tiled,
+                rlsep_grouped=rlsep.rl_bands_separable_grouped.launches,
+                rl2d=rl2d.richardson_lucy_direct.launches + rl2d.richardson_lucy_direct.launches_tiled)
+
+
+def spectral_inputs(ex):
+    """The FFT stage's spectrum as (N, F) and the publish's mask stack (the
+    pixel mean's all-ones row, then the ROIs): the specred kernel's inputs."""
+    import torch
+
+    p = ex.pipeline
+    spec = p.slots[p.fft_index].fft
+    n = spec.shape[0] * spec.shape[1]
+    masks = torch.cat([torch.ones((1, n), device=spec.device), ex._mask_stack.reshape(-1, n)])
+    return spec.reshape(n, -1), masks
+
+
+def check_tilted_publish(ex, n_time):
+    p = ex.plot
+    nf = n_time // 2 + 1
+    for key in ("filtered_time", "filtered_signal", "avg_signal"):
+        assert getattr(p, key).shape == (n_time,) and np.isfinite(getattr(p, key)).all(), key
+    for key in ("filtered_frequencies", "filtered_signal_fft", "filtered_phase_fft",
+                "avg_signal_fft", "avg_phase_fft", "signal_fft"):
+        assert getattr(p, key).shape == (nf,) and np.isfinite(getattr(p, key)).all(), key
+    assert p.time.shape == (ex.pipeline.input.n_time,)
+    assert np.isfinite(p.refractive_index[1:]).all() and p.refractive_index.shape == (nf,)
+    assert np.isfinite(ex.image).all()
+
+
+def drive_tilt(ex, rng, n_slider, n_clicks, n_steps):
+    """The tilt path on an open scan with the main path's filters and ROIs:
+    tilt on at (2, 2) degrees, slider updates, clicks and tilt-slider steps
+    (each reruns from the tilt stage), then (3, 2) and the same, one live 3-D
+    view and an Apply after tilt (then one more). Returns (per-tilt
+    measurements, the spectra and the view's traces for the kernel checks,
+    the Apply's measurements)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import rlsep
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+
+    p = ex.pipeline
+    width, height = ex.image.shape
+    per_tilt, spectra = {}, {}
+
+    def sr_count():
+        return sr.spectral_reduction_sums.launches
+
+    for k, (tx, ty) in enumerate(((2.0, 2.0), (3.0, 2.0))):
+        ex.set_filter_param(TILT, "tilt_x", tx)
+        ex.set_filter_param(TILT, "tilt_y", ty)
+        on_ms, _ = command_ms(lambda: ex.set_filter_active(TILT, True) if k == 0
+                              else ex.update_filter(TILT))
+        n_time, n_freq = p.output.n_time, p.output.n_freq
+        check_tilted_publish(ex, n_time)
+        slider = [command_ms(lambda i=i: ex.set_fft_window_low(1.0 + 0.05 * (i + 1)), sr_count)
+                  for i in range(n_slider)]
+        clicks = [command_ms(lambda: ex.set_selected_pixel(int(rng.integers(width)),
+                                                           int(rng.integers(height))), sr_count)
+                  for _ in range(n_clicks)]
+        # tilt-slider steps to new lengths (each T seen for the first time:
+        # cuFFT plans for it are made in the step), then the same steps
+        # again (plans cached), each with its per-stage ms
+        steps, step_t, step_stage_ms, revisit = [], [], [], []
+        plans_before = torch.backends.cuda.cufft_plan_cache.size
+        for j in range(n_steps):
+            ex.set_filter_param(TILT, "tilt_x", tx + 0.02 * (j + 1))
+            steps.append(command_ms(lambda: ex.update_filter(TILT), sr_count))
+            step_t.append(p.output.n_time)
+            step_stage_ms.append({k: round(v, 3) for k, v in p.timings_ms.items()})
+        new_plans = torch.backends.cuda.cufft_plan_cache.size - plans_before
+        for j in reversed(range(n_steps)):
+            ex.set_filter_param(TILT, "tilt_x", tx + 0.02 * (j + 1))
+            revisit.append(command_ms(lambda: ex.update_filter(TILT), sr_count))
+        ex.set_filter_param(TILT, "tilt_x", tx)
+        ex.update_filter(TILT)
+        assert p.output.n_time == n_time
+        assert all(n == 1 for _ms, n in slider + steps), (slider, steps)
+        assert all(n == 0 for _ms, n in clicks), clicks
+        check_tilted_publish(ex, n_time)
+        spec, masks = spectral_inputs(ex)
+        spectra[n_freq] = (spec.clone(), masks.clone())
+        per_tilt[f"{tx:g}_{ty:g}"] = dict(
+            T=n_time, F=n_freq, T_mod_4=n_time % 4, tilt_on_ms=on_ms,
+            slider_ms_median=statistics.median(m for m, _ in slider),
+            slider_ms=[m for m, _ in slider], specred_launches_per_update=slider[0][1],
+            click_ms_median=statistics.median(m for m, _ in clicks),
+            click_ms=[m for m, _ in clicks], specred_launches_per_click=clicks[0][1],
+            tilt_step_ms_median=statistics.median(m for m, _ in steps),
+            tilt_step_ms=[m for m, _ in steps], tilt_step_T=step_t,
+            tilt_step_stage_ms=step_stage_ms, tilt_step_new_cufft_plans=new_plans,
+            tilt_revisit_ms_median=statistics.median(m for m, _ in revisit),
+            tilt_revisit_ms=[m for m, _ in revisit[::-1]],
+            stage_ms=p.timings_ms)
+    # the live 3-D view of the tilted final slot (T = 1606: the envelope's
+    # plain-load route), then an Apply after tilt
+    ex.set_opacity_threshold(_VIEW_OPACITY_THRESHOLD)
+    env_before = env.envelope.launches
+    view_ms, view = live_view(ex)
+    assert env.envelope.launches == env_before + 1
+    assert 0 < len(view[0]) <= _VIEW_MAX_POINTS and np.isfinite(view[1]).all()
+    view_flat = p.output.data.reshape(width * height, -1)
+    rl = rlsep.rl_bands_separable
+
+    def rl_count():
+        return rl.launches + rl.launches_tiled
+
+    ex.apply_psf(synthetic_psf())
+    ex.set_filter_active(DEC, True)
+    first_ms, first_rl = command_ms(lambda: ex.update_filter(DEC, force=True), rl_count)
+    again = [command_ms(lambda: ex.update_filter(DEC, force=True), rl_count) for _ in range(5)]
+    geometry = p.filters[DEC]._plan_cache[1]
+    expected = len(rlsep.launch_schedule(geometry.n_iter))
+    assert first_rl == expected > 0 and all(n == expected for _m, n in again), (first_rl, again)
+    assert np.isfinite(ex.image).all() and ex.plot.filtered_time.shape == (p.output.n_time,)
+    apply = dict(T=p.output.n_time, first_apply_ms=first_ms,
+                 apply_again_ms=statistics.median(m for m, _ in again),
+                 apply_again_ms_runs=[m for m, _ in again], stage_ms=p.timings_ms[DEC],
+                 rl_launches_per_apply=first_rl, rl_launches_expected=expected,
+                 geometry=geometry_summary(geometry, (width, height)))
+    return per_tilt, spectra, (view_ms, view, view_flat), apply
+
+
+def cufft_plan_ms(n_rows, lengths):
+    """Host ms of the chain's rfft and irfft over an (n_rows, T) f32 batch
+    at lengths T no call has used yet: the first call of each (cuFFT makes
+    its plan) and the second (the plan cached), a synchronize on each side."""
+    import torch
+
+    out = {}
+    for t_len in lengths:
+        x = torch.randn((n_rows, t_len), device="cuda")
+        fwd = [command_ms(lambda: torch.fft.rfft(x))[0] for _ in range(2)]
+        spec = torch.fft.rfft(x)
+        inv = [command_ms(lambda: torch.fft.irfft(spec, n=t_len))[0] for _ in range(2)]
+        out[t_len] = dict(rfft_first_ms=fwd[0], rfft_cached_ms=fwd[1],
+                          irfft_first_ms=inv[0], irfft_cached_ms=inv[1])
+        del x, spec
+    return out
+
+
+def small_tilt_reference(seed):
+    """Card vs CPU on a small scan with tilt active: the main path's
+    commands, tilt on at (2, 2), a slider step, a click and a tilt step;
+    every published series and the image at the main path's tolerance.
+    Returns (T, worst difference)."""
+    from thz_image_explorer_tpu_torch.pipeline import Explorer
+
+    t, cube = synthetic_scan(24, 20, 128, seed=seed)
+    runs = []
+    for device in ("cuda", "cpu"):
+        ex = Explorer(device=device)
+        drive_commands(ex, lambda: ex.open_arrays(t, cube, scan_metadata(1.0)), cube, 1, 1,
+                       np.random.default_rng(seed))
+        ex.set_filter_param(TILT, "tilt_x", 2.0)
+        ex.set_filter_param(TILT, "tilt_y", 2.0)
+        ex.set_filter_active(TILT, True)
+        ex.set_fft_window_low(1.4)
+        ex.set_selected_pixel(17, 3)
+        ex.set_filter_param(TILT, "tilt_x", 3.0)
+        ex.update_filter(TILT)
+        runs.append((ex.plot, ex.image, ex.pipeline.output.n_time))
+    (g, gi, gt), (c, ci, ct) = runs
+    assert gt == ct > 128, (gt, ct)
+    np.testing.assert_array_equal(g.filtered_time, c.filtered_time)
+    return gt, compare_plots(g, gi, c, ci, lambda ref: (5e-5, 1e-4))
+
+
+def replan_alloc_ms(shape_f):
+    """What the replan's three zeroed cube-sized spectra (c64 + 2 x f32)
+    would cost per tilt step: host ms of allocating and zeroing them, a
+    synchronize on each side (median of 5), and their bytes."""
+    import torch
+
+    w, h, f = shape_f
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept = [torch.zeros((w, h, f), dtype=dt, device="cuda")
+                for dt in (torch.complex64, torch.float32, torch.float32)]
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        del kept
+    return statistics.median(runs), w * h * f * 16
+
+
+def fir_reference(traces, taps):
+    """float64 numpy 'same' correlation of every trace with every band's
+    taps ((P, T) x (B, L) -> (B, P, T)), by rows of 16 positions."""
+    n_taps = taps.shape[1]
+    mid = n_taps // 2
+    padded = np.pad(traces, ((0, 0), (mid, n_taps - 1 - mid)))
+    out = np.empty((taps.shape[0],) + traces.shape)
+    for i in range(0, traces.shape[0], 16):
+        win = np.lib.stride_tricks.sliding_window_view(padded[i: i + 16], n_taps, axis=1)
+        out[:, i: i + 16] = np.einsum("ptl,bl->bpt", win, taps, optimize=True)
+    return out
+
+
+def drive_psf_tool(mx, my, dev):
+    """The PSF tool on the card: ``compute_psf`` on the two axes' knife-edge
+    measurements with the default FilterParams. Returns (result, whole ms,
+    the device filtering calls' ms)."""
+    from thz_image_explorer_tpu_torch.psf_tool import fitting
+    from thz_image_explorer_tpu_torch.psf_tool.app import FilterParams, compute_psf
+
+    calls = []
+    real = fitting.filter_and_intensity_all_bands
+
+    def timed_filter(traces, taps, device=None):
+        ms, out = timed(lambda: real(traces, taps, device))
+        calls.append(ms)
+        return out
+
+    fitting.filter_and_intensity_all_bands = timed_filter
+    try:
+        whole_ms, res = timed(lambda: compute_psf(mx, my, FilterParams(), device=dev))
+    finally:
+        fitting.filter_and_intensity_all_bands = real
+    assert res is not None and res.curve_fits is not None
+    for ax in (res.x, res.y):
+        for side in (ax.beam_fits, ax.beam_fits_left, ax.beam_fits_right):
+            assert side.filtered_traces_x.device.type == "cuda"
+    return res, whole_ms, calls
+
+
+def compare_psf_fits(g, c):
+    """Card vs CPU port fits: per band (x0, w) of every half and axis and
+    the fitted curves on 0.1-10 THz. Returns the largest difference (mm)."""
+    worst = 0.0
+    for ax in ("x", "y"):
+        for side in ("beam_fits", "beam_fits_left", "beam_fits_right"):
+            a = getattr(getattr(g, ax), side).popt_xs
+            b = getattr(getattr(c, ax), side).popt_xs
+            worst = max(worst, float(np.abs(a - b).max()))
+    f = np.linspace(0.1, 10.0, 200)
+    for name in ("wx_fit", "wy_fit"):
+        worst = max(worst, float(np.abs(getattr(g.curve_fits, name).evaluate(f)
+                                        - getattr(c.curve_fits, name).evaluate(f)).max()))
+    for name in ("x0_fit", "y0_fit"):
+        worst = max(worst, float(np.abs(getattr(g.curve_fits, name).evaluate_const_extrap(f)
+                                        - getattr(c.curve_fits, name).evaluate_const_extrap(f)).max()))
+    assert worst <= _PSF_CPU_ATOL, worst
+    return worst
+
+
+def drive_open_ref(ex, t, cube):
+    """A reference pulse loaded through the array seam (the scan's mean
+    trace, DC removed, scaled) as the optical reference, ROI 1 and then the
+    selected pixel as the sample; then tilt on, where the pulse's bin count
+    no longer matches: the selection is skipped with one warning and no
+    n/alpha/kappa are published. Returns the published optical series and
+    the warnings."""
+    import logging
+
+    from thz_image_explorer_tpu_torch.pipeline import explorer as explorer_mod
+
+    pulse = cube.mean(axis=(0, 1)) - cube.mean(axis=(0, 1))[0]
+    ex.open_ref_arrays(t, 1.2 * pulse)
+    ex.set_reference("Reference File")
+    ex.set_sample("ROI 1")
+    nf = len(t) // 2 + 1
+    p = ex.plot
+    assert p.refractive_index.shape == (nf,) and np.isfinite(p.refractive_index[1:]).all()
+    optical = {k: getattr(p, k).copy() for k in ("refractive_index", "absorption_coefficient",
+                                                  "extinction_coefficient")}
+    roi1 = next(u for u, (n, _p) in ex.rois.items() if n == "ROI 1")
+    pulse_uuid = next(u for u, (n, _p) in ex.rois.items() if n == "Reference File")
+    inputs = dict(samp=(p.roi_signal_fft[roi1][1], p.roi_phase[roi1][1]),
+                  ref=(p.roi_signal_fft[pulse_uuid][1], p.roi_phase[pulse_uuid][1]),
+                  freq=p.filtered_frequencies.copy(), thickness=ex.sample_thickness)
+    ex.set_sample("Selected Pixel")
+    ex.set_selected_pixel(40, 60)
+    assert np.isfinite(ex.plot.refractive_index[1:]).all()
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep(level=logging.WARNING)
+    explorer_mod.log.addHandler(handler)
+    try:
+        ex.set_filter_param(TILT, "tilt_x", 2.0)
+        ex.set_filter_param(TILT, "tilt_y", 2.0)
+        ex.set_filter_active(TILT, True)
+        ex.set_selected_pixel(41, 60)
+        ex.set_fft_window_low(1.2)
+    finally:
+        explorer_mod.log.removeHandler(handler)
+    skipped = [r for r in records if "skipped" in r]
+    assert len(skipped) == 1 and "Reference File" in skipped[0], records
+    assert ex.plot.refractive_index.shape == (0,), "a mismatched pulse was published"
+    ex.set_filter_active(TILT, False)
+    assert ex.plot.refractive_index.shape == (nf,)
+    return optical, inputs, skipped
+
+
+def check_open_ref_optical(optical, inputs):
+    """The published n/alpha/kappa against the optical formula on the CPU
+    from the published pulse and ROI spectra: the same function of the same
+    inputs. Returns the largest relative difference."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops.optical import calculate_optical_properties
+
+    want = calculate_optical_properties(
+        *(torch.as_tensor(v) for v in inputs["samp"]), *(torch.as_tensor(v) for v in inputs["ref"]),
+        torch.as_tensor(inputs["freq"]), float(inputs["thickness"]))
+    worst = 0.0
+    for (key, got), ref in zip(optical.items(), want):
+        ref = ref.numpy()[1:]
+        got = got[1:]
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6 * np.abs(ref).max(), err_msg=key)
+        worst = max(worst, float((np.abs(got - ref) / (np.abs(ref) + 1e-30)).max()))
+    return worst
+
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1633,6 +2033,160 @@ def main() -> int:
     del ex, main_spec, main_masks, pulse_spec, masks5, roi_masks, final, env_flat, canvas, psf9
     torch.cuda.empty_cache()
 
+    # 8b. tilt compensation on the main path's scan, filters and ROIs: the
+    # tilt path's launches counted from 0 (the kernel checks come after)
+    tilt_ex = Explorer(device="cuda")
+    drive_commands(tilt_ex, lambda: tilt_ex.open_arrays(t, cube, scan_metadata(0.5)), cube, 0, 0,
+                   np.random.default_rng(args.seed))
+    zero_counts()
+    per_tilt, tilt_spectra, (tilt_view_ms, tilt_view, tilt_flat), tilt_apply = drive_tilt(
+        tilt_ex, np.random.default_rng(args.seed + 2), 6, 6, 4)
+    tilt_launches = read_counts()
+    for kernel in ("specred", "envelope", "rlsep_cluster"):
+        assert tilt_launches[kernel] > 0, (kernel, tilt_launches)
+    # the kernels on the tilt path's own inputs: specred at both F, the
+    # envelope on the T = 1606 live view's traces (its plain-load route)
+    tilt_specred = {}
+    for nf, (spec_t, masks_t) in sorted(tilt_spectra.items()):
+        errs = [check_specred(spec_t, masks_t, wc, f"tilt F={nf} wc={wc}")[0] for wc in (False, True)]
+        m_t = int(masks_t.shape[0])
+        bound_t, bound_by_t = specred_bound_ms(n, nf, m_t, name)
+        tilt_specred[f"F{nf}"] = dict(
+            shape=[n, nf, m_t], max_abs_err=max(errs),
+            ms=device_ms(lambda: sr.spectral_reduction_sums(spec_t, masks_t, False)),
+            plain_ms=time_ms(lambda: sr.spectral_reduction_sums_plain(spec_t, masks_t, False),
+                             reps=5, inner=2),
+            bound_ms=bound_t, bound_by=bound_by_t, plan=check_specred_plan(n, nf, m_t))
+    t_view = tilt_flat.shape[1]
+    tilt_env_plan = check_envelope_plan(n, t_view, int(v3["kernel_radius"]))
+    tilt_env_err, tilt_env_edges = check_envelope(tilt_flat, env_taps, *env_args,
+                                                  f"tilted view T={t_view}")
+    tilt_env_bound, tilt_env_bound_by = envelope_bound_ms(n, t_view, int(v3["kernel_radius"]),
+                                                          name)
+    tilt_envelope = dict(
+        shape=[n, t_view], route=tilt_env_plan["route"], max_abs_err=tilt_env_err,
+        edge_traces=tilt_env_edges,
+        ms=device_ms(lambda: env.envelope(tilt_flat, env_taps, *env_args)),
+        plain_ms=time_ms(lambda: env.envelope_plain(tilt_flat, env_taps, *env_args),
+                         reps=5, inner=1),
+        bound_ms=tilt_env_bound, bound_by=tilt_env_bound_by)
+    assert t_view % 4 != 0 and tilt_env_plan["route"] == "plain", tilt_env_plan
+    f_tilted = max(tilt_spectra)
+    alloc_ms, alloc_bytes = replan_alloc_ms((width, height, f_tilted))
+    # cuFFT's plans for a new T, at lengths no call has used: 1680 = 2^4 3 5 7,
+    # 1826 = 2 11 83, 1874 = 2 937
+    plan_ms = cufft_plan_ms(n, (1680, 1826, 1874))
+    small_t, small_worst = small_tilt_reference(args.seed)
+    emit(phase="tilt", shape=[width, height, n_time], card=smi, dx_mm=0.5,
+         tilts=per_tilt, launches=tilt_launches,
+         view_T=t_view, view_ms=tilt_view_ms, view_points=len(tilt_view[0]),
+         envelope_launches_per_view=1, envelope=tilt_envelope,
+         specred=tilt_specred, apply=tilt_apply,
+         replan="zero spectra expanded from a scalar (no allocation)",
+         replan_alloc_ms_avoided=alloc_ms, replan_alloc_bytes_avoided=alloc_bytes,
+         cufft_plan_ms=plan_ms,
+         small_reference=dict(shape=[24, 20, 128], T=small_t, max_abs_diff=small_worst,
+                              tolerance="atol=5e-5, rtol=1e-4, cuda vs cpu port"),
+         timing="host ms with a synchronize on each side; kernels: device time behind a "
+                "spin (device_ms)")
+    del tilt_spectra, tilt_flat, tilt_view
+    torch.cuda.empty_cache()
+
+    # 8c. the PSF tool end to end: knife-edge traces of the reference
+    # fixture's shape -> compute_psf on the card -> export -> load -> Apply
+    from thz_image_explorer_tpu_torch.io.psf_npz import load_psf
+    from thz_image_explorer_tpu_torch.ops import firapply
+    from thz_image_explorer_tpu_torch.psf_tool.app import PsfToolApp, compute_psf
+    from thz_image_explorer_tpu_torch.psf_tool.app import FilterParams as PsfFilterParams
+    from thz_image_explorer_tpu_torch.psf_tool.data_loader import KnifeEdgeMeasurement
+    from thz_image_explorer_tpu_torch.psf_tool.data_loader import split_and_flip
+
+    knife_x = KnifeEdgeMeasurement(*knife_edge_traces(seed=args.seed))
+    knife_y = KnifeEdgeMeasurement(*knife_edge_traces(seed=args.seed + 1, width_scale=1.2))
+    tilt_ex.set_filter_active(TILT, False)  # the scan's own axis again
+    zero_counts()
+    psf_res, psf_ms, psf_filter_ms = drive_psf_tool(knife_x, knife_y, dev)
+    tool = PsfToolApp(device=dev)
+    tool.result = psf_res  # the computed result (the app's thread reads h5py files)
+    psf_tmp = tempfile.TemporaryDirectory()
+    psf_path = f"{psf_tmp.name}/psf_tool.npz"
+    assert tool.export_npz(psf_path)
+    tool_psf = load_psf(psf_path)
+    psf_tmp.cleanup()
+    assert tool_psf.fingerprint() == tool.runtime_psf().fingerprint()
+    tilt_ex.apply_psf(tool_psf)
+    rl_fn = rlsep.rl_bands_separable
+    tool_apply_ms, tool_rl = command_ms(lambda: tilt_ex.update_filter(DEC, force=True),
+                                        lambda: rl_fn.launches + rl_fn.launches_tiled)
+    tool_again_ms, tool_rl_again = command_ms(lambda: tilt_ex.update_filter(DEC, force=True),
+                                              lambda: rl_fn.launches + rl_fn.launches_tiled)
+    psf_launches = read_counts()
+    tool_geometry = tilt_ex.pipeline.filters[DEC]._plan_cache[1]
+    assert tool_rl == tool_rl_again == len(rlsep.launch_schedule(tool_geometry.n_iter)) > 0
+    assert psf_launches["rlsep_cluster"] > 0 and psf_launches["rlsep"] == 0, psf_launches
+    assert np.isfinite(tilt_ex.image).all() and tilt_ex.image.shape == (width, height)
+    # the filtering against a float64 numpy correlation of the same traces
+    # (the x axis's right half), then the card's fits against the CPU port's
+    half = split_and_flip(knife_x)[1]
+    filt, inten = firapply.fir_correlate_bands_device(half.time_traces, psf_res.filters, dev)
+    ref_filt = fir_reference(half.time_traces, psf_res.filters)
+    filt_err = float(np.abs(filt.cpu().numpy() - ref_filt).max())
+    assert filt_err <= 1e-6 * np.abs(ref_filt).max(), filt_err
+    ref_inten = np.stack([(b ** 2).sum(-1) for b in ref_filt])
+    lo, hi = ref_inten.min(1, keepdims=True), ref_inten.max(1, keepdims=True)
+    ref_inten = (ref_inten - lo) / (hi - lo)
+    inten_err = float(np.abs(inten - ref_inten).max())
+    assert inten_err <= 1e-9, inten_err
+    del filt
+    cpu_ms, cpu_res = timed(lambda: compute_psf(knife_x, knife_y, PsfFilterParams(),
+                                                device="cpu"))
+    psf_cpu_worst = compare_psf_fits(psf_res, cpu_res)
+    # rlsep_cluster on the tool PSF's own RL inputs
+    k_dec = tilt_ex.pipeline.index_of(DEC)
+    tool_rl_inputs = dec.rl_inputs(tilt_ex.pipeline.slots[k_dec - 1].data, tool_geometry)
+    tool_shape = list(tool_rl_inputs[0].shape)
+    tool_route = "cluster" if rlsep.cluster_size_for(
+        *tool_shape[1:], tool_rl_inputs[1].shape[1], tool_rl_inputs[2].shape[1]) else "tiled"
+    tool_rl_plain_ms, tool_rl_ref = timed(lambda: rlsep.rl_bands_separable_plain(*tool_rl_inputs))
+    tool_rl_err, tool_rl_rel = check_rl(*tool_rl_inputs, "tool PSF", tool_route, ref=tool_rl_ref)
+    tool_rl_ms = device_ms(lambda: rlsep.rl_bands_separable(*tool_rl_inputs), reps=5, inner=1,
+                           warm=1)
+    tool_rl_bound, tool_rl_bound_by, _ = rl_bound_ms(tool_geometry, (width, height), name)
+    del tool_rl_inputs, tool_rl_ref
+    widths = {ax: np.round(getattr(psf_res, ax).beam_fits.popt_xs[:, 1], 4).tolist()
+              for ax in ("x", "y")}
+    emit(phase="psf_tool", card=smi, knife_edge=[300, 1001], bands=int(psf_res.filters.shape[0]),
+         taps=int(psf_res.filters.shape[1]), params="default FilterParams (20 bands, log)",
+         compute_psf_ms=psf_ms, device_filter_ms=psf_filter_ms,
+         device_filter_calls=len(psf_filter_ms), cpu_compute_psf_ms=cpu_ms,
+         center_frequencies_thz=np.round(psf_res.center_frequencies, 4).tolist(),
+         fitted_widths_mm=widths, filtered_max_abs_err=filt_err,
+         intensities_max_abs_err=inten_err,
+         filter_tolerance="cube |card - f64 numpy| <= 1e-6 * max; intensities <= 1e-9",
+         card_vs_cpu_fits_max_abs_mm=psf_cpu_worst, card_vs_cpu_tolerance_mm=_PSF_CPU_ATOL,
+         apply=dict(shape=[width, height, n_time], first_apply_ms=tool_apply_ms,
+                    apply_again_ms=tool_again_ms, rl_launches_per_apply=tool_rl,
+                    geometry=geometry_summary(tool_geometry, (width, height))),
+         launches=psf_launches,
+         rl_kernel=dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
+                        max_rel_err=tool_rl_rel, ms=tool_rl_ms, plain_ms=tool_rl_plain_ms,
+                        bound_ms=tool_rl_bound, bound_by=tool_rl_bound_by))
+
+    # 8d. open_ref: a pulse through the array seam as the optical reference
+    zero_counts()
+    ref_optical, ref_inputs, ref_skipped = drive_open_ref(tilt_ex, t, cube)
+    ref_launches = read_counts()
+    assert ref_launches["specred"] > 0, ref_launches
+    ref_rel = check_open_ref_optical(ref_optical, ref_inputs)
+    emit(phase="open_ref", card=smi, pulse="the scan's mean trace x 1.2, open_ref_arrays",
+         optical_bins=len(ref_optical["refractive_index"]),
+         n_median=float(np.median(ref_optical["refractive_index"][1:])),
+         optical_vs_formula_max_rel=ref_rel, after_tilt="skipped: " + ref_skipped[0],
+         launches=ref_launches)
+    del tilt_ex
+    torch.cuda.empty_cache()
+
+
     # 9. scale: the README's larger scan, 512x512x1024 (a 1 GiB cube)
     t5, cube5 = synthetic_scan(512, 512, 1024, seed=args.seed + 1)
     torch.cuda.reset_peak_memory_stats()
@@ -1713,6 +2267,11 @@ def main() -> int:
         "kernels_per_call": 1,
         "library_ms": None,
         "shape": [n, f, m],
+        # the tilt path (F = 745 and 804), the PSF tool's and open_ref's
+        "launches_tilt": tilt_launches["specred"],
+        "tilt": tilt_specred,
+        "launches_psf_tool": psf_launches["specred"],
+        "launches_open_ref": ref_launches["specred"],
     }, {
         "name": "rlsep_cluster",
         "route": "cuda",
@@ -1737,6 +2296,12 @@ def main() -> int:
         "library_ms": None,
         "shape": rl_shape,
         "n_iter_sum": geo["n_iter_sum"],
+        # an Apply after tilt, and the Apply on the PSF tool's PSF
+        "launches_tilt": tilt_launches["rlsep_cluster"],
+        "launches_psf_tool": psf_launches["rlsep_cluster"],
+        "tool_psf": dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
+                         ms=tool_rl_ms, plain_ms=tool_rl_plain_ms, bound_ms=tool_rl_bound,
+                         bound_by=tool_rl_bound_by),
     }, {
         "name": "rlsep",
         "route": "cuda",
@@ -1779,6 +2344,9 @@ def main() -> int:
         # per-trace normalization
         "library_ms": None,
         "shape": env_shape,
+        # the live view after tilt (T = 1606, the plain-load route)
+        "launches_tilt": tilt_launches["envelope"],
+        "tilt": tilt_envelope,
     }, {
         "name": "rl2d",
         "route": "cuda",

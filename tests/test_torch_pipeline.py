@@ -257,13 +257,13 @@ def _opened(scan_path):
 def test_pass_through_slots_share_tensors(scan_path):
     p = _opened(scan_path).pipeline
     chain = p.chain
-    assert chain == ["initial", "scaling", "time_band_pass_before_fft", "fft",
-                     "frequency_band_pass", "water_vapor_notch", "ifft",
+    assert chain == ["initial", "scaling", "tilt_compensation", "time_band_pass_before_fft",
+                     "fft", "frequency_band_pass", "water_vapor_notch", "ifft",
                      "time_band_pass_after_fft", "deconvolution"]
     # scale 1 and every filter inactive: identity stages pass the object on
-    for i in (1, 2, 4, 5, 7, 8):
+    for i in (1, 2, 3, 5, 6, 8, 9):
         assert p.slots[i] is p.slots[i - 1], chain[i]
-    assert p.slots[6].fft is p.slots[3].fft  # the iFFT keeps the spectrum
+    assert p.slots[7].fft is p.slots[4].fft  # the iFFT keeps the spectrum
 
 
 def test_dirty_index_reruns_only_downstream(scan_path):

@@ -8,8 +8,9 @@ reference the port is tested against). Layout mirrors it module by module:
 ``io``        dotTHz (HDF5) reader/writer, the in-memory open, the
               PSF ``.npz`` codec and the VTU export
 ``models``    the frequency-resolved PSF model (splines + hybrid fits)
-``ops``       windows, band-passes, FFT/unwrap, scaling, intensity,
-              ROI masks, optical properties, the one-pass spectral
+``ops``       windows, band-passes, tilt compensation, FFT/unwrap,
+              scaling, intensity, ROI masks, optical properties, the
+              PSF tool's FIR band filtering, the one-pass spectral
               reduction (``ops/specred.py`` + ``csrc/specred.cu``), the
               FIR bank and the frequency-resolved Richardson-Lucy
               deconvolution (``ops/deconvolution.py``, its kernels
@@ -21,8 +22,10 @@ reference the port is tested against). Layout mirrors it module by module:
 ``pipeline``  stage protocol, filters, the per-stage executor, publish
               and the :class:`~thz_image_explorer_tpu_torch.pipeline.
               explorer.Explorer` command facade
+``psf_tool``  knife-edge measurements -> fitted PSF model -> ``.npz``
 ``convert``   JAX-side state (numpy leaves, PSF arrays, filter
-              parameters) -> the port's, for the tests
+              parameters, knife-edge measurements and fits) -> the
+              port's, for the tests
 
 Devices are explicit: every entry point takes a ``device`` and defaults to
 ``"cuda"``; nothing falls back to the CPU on its own.

@@ -1,7 +1,7 @@
 """Carry JAX-side state across to the port: numpy leaves -> tensors.
 
-The system has no weights; its state is the scan cube and the filter
-parameters. The tests use these helpers to feed the JAX package's
+The system has no weights; its state is the scan cube, the filter
+parameters, the PSF and the PSF tool's measurements and fits. The tests use these helpers to feed the JAX package's
 intermediate state (converted to numpy by the caller) into the port's
 stages, so each stage can be compared on identical inputs.
 """
@@ -16,6 +16,8 @@ import torch
 from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.io.psf_npz import psf_from_arrays
 from thz_image_explorer_tpu_torch.pipeline.stage import FilterStage, instantiate_filters
+from thz_image_explorer_tpu_torch.psf_tool.data_loader import KnifeEdgeMeasurement
+from thz_image_explorer_tpu_torch.psf_tool.fitting import BeamWidthFits, MeanBeamFit
 
 _TENSOR_FIELDS = (
     "time", "data", "freq", "fft", "amplitudes", "phases",
@@ -68,3 +70,36 @@ def filter_params_from_numpy(params: dict[str, dict]) -> dict[str, FilterStage]:
                 value = value.item()
             setattr(target, key, value)
     return filters
+
+
+def knife_edge_from_numpy(positions, time_traces, times) -> KnifeEdgeMeasurement:
+    """The port's knife-edge measurement from a JAX one's arrays (float64
+    copies, so neither side's later edits reach the other)."""
+    return KnifeEdgeMeasurement(
+        positions=np.array(positions, np.float64),
+        time_traces=np.array(time_traces, np.float64),
+        times=np.array(times, np.float64),
+    )
+
+
+def mean_beam_fit_from_numpy(x0, y0, popt_x, popt_y) -> MeanBeamFit:
+    """A JAX ``MeanBeamFit``'s values as the port's (the warm start of a
+    band fit chain)."""
+    return MeanBeamFit(x0=float(x0), y0=float(y0),
+                       popt_x=tuple(float(v) for v in popt_x),
+                       popt_y=tuple(float(v) for v in popt_y))
+
+
+def beam_width_fits_from_numpy(popt_xs, popt_ys, filtered_traces_x, filtered_traces_y,
+                               x_positions, y_positions, *, device) -> BeamWidthFits:
+    """A JAX ``BeamWidthFits``'s arrays as the port's, the filtered (B, P, T)
+    cubes as float32 tensors on ``device`` (one tensor when the JAX side
+    shared one cube for x and y)."""
+    fx = torch.as_tensor(np.array(filtered_traces_x, np.float32), device=device)
+    fy = fx if filtered_traces_y is filtered_traces_x else torch.as_tensor(
+        np.array(filtered_traces_y, np.float32), device=device)
+    return BeamWidthFits(popt_xs=np.array(popt_xs, np.float64),
+                         popt_ys=np.array(popt_ys, np.float64),
+                         filtered_traces_x=fx, filtered_traces_y=fy,
+                         x_positions=np.array(x_positions, np.float64),
+                         y_positions=np.array(y_positions, np.float64))

@@ -156,6 +156,11 @@ def write_group_metadata(group, md: DotthzMetadata):
     group.attrs["dsDescription"] = ",".join(md.ds_description)
 
 
+def clear_group_metadata(group):
+    for key in list(group.attrs.keys()):
+        del group.attrs[key]
+
+
 def _first_group(f) -> Optional[str]:
     """First top-level GROUP name; root-level datasets are skipped (the
     reference iterates groups only, ``io.rs:496-509``)."""
@@ -306,3 +311,57 @@ def save_scan(path: str, cube: ScanCube, metadata: DotthzMetadata):
             i = metadata.ds_description.index("dataset")
             vw, vh = cube.valid_wh
             group.create_dataset(f"ds{i + 1}", data=cube.data[:vw, :vh].cpu().numpy())
+
+
+def open_pulse(path: str) -> tuple[np.ndarray, np.ndarray, DotthzMetadata]:
+    """Read a single reference pulse: first group, first 2-D dataset, its
+    columns ``[time, signal]`` (``io.rs:435-477``)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        gname = _first_group(f)
+        if gname is None:
+            raise ValueError(f"no groups in {path}")
+        group = f[gname]
+        metadata = read_group_metadata(group)
+        for name in sorted(group.keys()):
+            ds = group[name]
+            if isinstance(ds, h5py.Dataset) and ds.ndim == 2:
+                arr = np.asarray(ds[()], np.float32)
+                return arr[:, 0], arr[:, 1], metadata
+    raise ValueError(f"no 2-D dataset in {path}")
+
+
+def _resolve_group(f, group_name: Optional[str]) -> str:
+    """``"Image"`` when present, else the first group: metadata reads and
+    writes target the group :func:`open_scan_host` read from (the
+    reference looks up ``"Image"``, ``io.rs:363-380``)."""
+    import h5py
+
+    if group_name is not None:
+        return group_name
+    if "Image" in f and isinstance(f["Image"], h5py.Group):
+        return "Image"
+    g = _first_group(f)
+    if g is None:
+        raise ValueError("no groups in file")
+    return g
+
+
+def load_metadata(path: str, group_name: Optional[str] = None) -> DotthzMetadata:
+    """Metadata-only read (``io.rs:329-342``)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return read_group_metadata(f[_resolve_group(f, group_name)])
+
+
+def update_metadata(path: str, metadata: DotthzMetadata,
+                    group_name: Optional[str] = None):
+    """Clear and rewrite the metadata in place (``io.rs:363-380``)."""
+    import h5py
+
+    with h5py.File(path, "r+") as f:
+        group = f[_resolve_group(f, group_name)]
+        clear_group_metadata(group)
+        write_group_metadata(group, metadata)

@@ -12,8 +12,10 @@ Contracts kept:
 
 * stages upstream of the dirty index keep their cached outputs;
 * inactive stages are identity (``data_thread.rs:1185-1188``);
-* a stage that changes the time-axis length gets a recomputed frequency
-  axis and zeroed spectra (``data_thread.rs:1194-1227``);
+* a stage that changes the time-axis length (tilt compensation) gets a
+  recomputed frequency axis and zero spectra of the new length
+  (``data_thread.rs:1194-1227``); the host axis comes from the stage's
+  ``host_time_out``, never from the device;
 * per-stage compute times (``filter_computation_time_lock``), here from
   CUDA events read after one synchronize;
 * the deconvolution-rerun suppression (``data_thread.rs:1139-1150``): a
@@ -61,6 +63,10 @@ class PipelineConfig:
         self.fft_window_type = WindowType.ADAPTED_BLACKMAN
         self.scale_factor = 1
         self.avg_in_fourier_space = False
+        #: plot settings the reference stores with the processing config
+        #: (``config.rs:171-213``); the chain does not read them
+        self.fft_log_plot = False
+        self.fft_df = 1.0
 
 
 class Pipeline:
@@ -163,8 +169,12 @@ class Pipeline:
             if out is not inp:
                 self._stop_timer(name, timer)
             if out.n_time != inp.n_time:
+                time = stage.host_time_out(self._host_time[i - 1], inp, self.valid_for(inp))
+                if time.shape[0] != out.n_time:
+                    raise ValueError(f"stage {name!r} gave {out.n_time} samples, its "
+                                     f"host_time_out {time.shape[0]}")
                 out = self._replan(out)
-                self._host_time[i] = out.time.cpu().numpy()
+                self._host_time[i] = time
             else:
                 self._host_time[i] = self._host_time[i - 1]
             self.slots[i] = out
@@ -187,7 +197,7 @@ class Pipeline:
         stage.clamp_params(inp, self._host_time[i - 1])
         out = stage.apply(inp, StageContext(
             progress=self._progress_setter(name), cancelled=self.cancelled,
-            psf=self.psf, valid_wh=self.valid_for(inp),
+            psf=self.psf, valid_wh=self.valid_for(inp), time=self._host_time[i - 1],
         ))
         if in_fd:
             weight = getattr(stage, "fd_weight_vector", None)
@@ -202,16 +212,28 @@ class Pipeline:
 
     @staticmethod
     def _replan(cube: ScanCube) -> ScanCube:
-        """Frequency-axis recompute + spectra realloc after a time-length
-        change (``data_thread.rs:1194-1227``)."""
+        """Frequency-axis recompute + zero spectra of the new length after a
+        time-length change (``data_thread.rs:1194-1227``). Nothing reads
+        these spectra: the next FFT stage replaces them, and the publish
+        reads only slots at and after it. So they are zero scalars expanded
+        to the cube's shape, which allocate nothing (three zeroed cubes
+        would be ≈ 477 MB at 200x200 and F = 745, on every tilt step)."""
         freq = frequency_axis(cube.time)
         shape = (cube.width, cube.height, freq.shape[0])
         dev = cube.device
+
+        def zeros(dtype, *size):
+            return torch.zeros((), dtype=dtype, device=dev).expand(*size)
+
         return cube.replace(
             freq=freq,
-            fft=torch.zeros(shape, dtype=torch.complex64, device=dev),
-            amplitudes=torch.zeros(shape, dtype=torch.float32, device=dev),
-            phases=torch.zeros(shape, dtype=torch.float32, device=dev),
+            fft=zeros(torch.complex64, *shape),
+            amplitudes=zeros(torch.float32, *shape),
+            phases=zeros(torch.float32, *shape),
+            avg_data=zeros(torch.float32, cube.n_time),
+            avg_fft=zeros(torch.complex64, freq.shape[0]),
+            avg_signal_fft=zeros(torch.float32, freq.shape[0]),
+            avg_phase_fft=zeros(torch.float32, freq.shape[0]),
         )
 
     # ------------------------------------------------------------ timings

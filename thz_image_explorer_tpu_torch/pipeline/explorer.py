@@ -14,19 +14,21 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import uuid as _uuidlib
 from typing import Optional
 
 import numpy as np
 import torch
 
-from thz_image_explorer_tpu_torch.data import resolve_device
+from thz_image_explorer_tpu_torch.data import make_cube, resolve_device
 from thz_image_explorer_tpu_torch.io import dotthz as thzio
+from thz_image_explorer_tpu_torch.io.files import find_files_with_same_extension
 from thz_image_explorer_tpu_torch.io.psf_npz import load_psf
 from thz_image_explorer_tpu_torch.io.vtk import export_to_vtk
 from thz_image_explorer_tpu_torch.ops.roi import polygon_mask
 from thz_image_explorer_tpu_torch.ops.voxel import extract_instances
-from thz_image_explorer_tpu_torch.ops.windows import WindowType
+from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
 from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
 from thz_image_explorer_tpu_torch.pipeline.publish import Publisher
 
@@ -131,8 +133,14 @@ class Explorer:
         self.plot = PlotData()
         self.metadata = thzio.DotthzMetadata()
         self.pixel_selected = [0, 0]
-        #: uuid -> (name, polygon)
-        self.rois: dict[str, tuple[str, list]] = {}
+        #: uuid -> (name, polygon); a polygon of None is a pseudo-ROI (a
+        #: loaded reference pulse, ``data_thread.rs:568-583``)
+        self.rois: dict[str, tuple[str, Optional[list]]] = {}
+        #: pseudo-ROI spectra: uuid -> (trace, amplitudes, phases), host f32
+        self._datasets: dict[str, tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        #: (uuid, its bins, the scan's bins) of optical selections already
+        #: warned about as skipped
+        self._warned_optical: set = set()
         self.sample_selection = ""
         self.reference_selection = ""
         self.sample_thickness = 1.0  # (application.rs:184)
@@ -173,6 +181,7 @@ class Explorer:
             str(_uuidlib.uuid4()): (label, coords)
             for label, coords in host.metadata.get_rois()
         }
+        self._datasets = {}
         self.pixel_selected = [0, 0]
         self.housekeeping = HouseKeeping.from_scan(host)
         self.housekeeping.apply_metadata(host.metadata.md)
@@ -187,8 +196,97 @@ class Explorer:
         md = self.metadata
         if "time" not in md.ds_description:
             md.ds_description = ["time", "dataset"]
-        md.set_rois(self.rois)
+        md.set_rois(self._polygon_rois())
         thzio.save_scan(path, inp, md)
+
+    def save_rois(self, path: str):
+        """SaveROIs: rewrite the ROI entries of a file's metadata in place
+        (``data_thread.rs:274-330``)."""
+        md = thzio.load_metadata(path)
+        md.set_rois(self._polygon_rois())
+        thzio.update_metadata(path, md)
+
+    def update_metadata(self):
+        """UpdateMetaData: rewrite the open file's metadata in place
+        (``io.rs:363-380``)."""
+        if self.file_path is None:
+            return
+        thzio.update_metadata(self.file_path, self.metadata)
+
+    def revert_metadata(self):
+        """Reload the open file's metadata, dropping unsaved edits (the
+        metadata editor's Revert, ``left_panel.rs:718-736``)."""
+        if self.file_path is None:
+            return
+        self.metadata = thzio.load_metadata(self.file_path)
+
+    @staticmethod
+    def load_metadata(path: str) -> thzio.DotthzMetadata:
+        """LoadMetaData: a file's metadata without opening its scan (the
+        file dialog's preview, ``gui/application.rs:861-900``)."""
+        return thzio.load_metadata(path)
+
+    def set_metadata_field(self, key: str, value):
+        """Edit a top-level metadata field (``left_panel.rs:693-1009``)."""
+        if hasattr(self.metadata, key) and key != "md":
+            setattr(self.metadata, key, str(value))
+
+    def set_metadata_attr(self, key: str, value):
+        self.metadata.md[str(key)] = str(value)
+
+    def delete_metadata_attr(self, key: str):
+        self.metadata.md.pop(str(key), None)
+
+    def sibling_files(self) -> list[str]:
+        """Files with the open file's extension in its directory, sorted:
+        the arrow-key navigation table (``io.rs:285-308``)."""
+        if self.file_path is None:
+            return []
+        return find_files_with_same_extension(self.file_path)
+
+    def open_sibling(self, delta: int):
+        """Arrow-key previous/next navigation with wrap-around
+        (``left_panel.rs:165-275``)."""
+        sibs = self.sibling_files()
+        if not sibs:
+            return
+        try:
+            idx = sibs.index(os.path.abspath(self.file_path))
+        except ValueError:
+            return
+        self.open_file(sibs[(idx + delta) % len(sibs)])
+
+    def open_ref(self, path: str):
+        """OpenRef (``data_thread.rs:372-588``): load a reference pulse from
+        a dotTHz file as a pseudo-ROI."""
+        time, signal, _md = thzio.open_pulse(path)
+        self.open_ref_arrays(time, signal)
+
+    def open_ref_arrays(self, time, signal):
+        """The in-memory counterpart of :meth:`open_ref`: a pulse given as a
+        (T,) time axis and a (T,) signal. It is aligned to the scan's time
+        axis, windowed and transformed once with the current FFT settings
+        (host math: one trace), and registered as the pseudo-ROI
+        "Reference File" (numbered after the first). Without a scan a 1x1
+        zero scan on the pulse's axis is opened first."""
+        time = np.asarray(time, np.float32)
+        if self.pipeline.input is None:
+            self.pipeline.set_input(make_cube(time, np.zeros((1, 1, len(time)), np.float32),
+                                              device=self.device))
+        scan_time = self.pipeline._host_time[0]
+        signal = _align_reference(signal, time, scan_time)
+        cfg = self.pipeline.config
+        w = window_array(torch.as_tensor(scan_time), cfg.fft_window_type,
+                         cfg.fft_window[0], cfg.fft_window[1]).numpy()
+        windowed = (signal * w).astype(np.float32)
+        spec = np.fft.rfft(windowed)
+        amplitudes = np.abs(spec).astype(np.float32)
+        phases = np.unwrap(np.angle(spec)).astype(np.float32)
+        n_refs = sum(1 for name, _p in self.rois.values() if "Reference File" in name)
+        uuid = str(_uuidlib.uuid4())
+        self.rois[uuid] = (f"Reference File {n_refs}" if n_refs else "Reference File", None)
+        self._datasets[uuid] = (windowed, amplitudes, phases)
+        self.publish()
 
     def save_vtu(self, path: str):
         """SaveVTU (``data_thread.rs:769-786``): export the 3-D voxel
@@ -255,6 +353,17 @@ class Explorer:
         self.pipeline.config.avg_in_fourier_space = enabled
         self._rerun_from_fft()
 
+    def set_fft_log_plot(self, enabled: bool):
+        """A display setting the GUI reads; nothing recomputes."""
+        self.pipeline.config.fft_log_plot = enabled
+
+    def set_fft_resolution(self, df: float):
+        """SetFFTResolution stores the value and republishes
+        (``UpdateType::Plot``, ``data_thread.rs:829-832``; the reference
+        reads ``fft_df`` nowhere else)."""
+        self.pipeline.config.fft_df = df
+        self.publish()
+
     def set_downscaling(self, scale: int):
         """SetDownScaling re-runs from the scaling stage
         (``data_thread.rs:837-840``)."""
@@ -315,8 +424,11 @@ class Explorer:
         self.publish()
 
     # ------------------------------------------------------- ROIs
-    def add_roi(self, uuid: str, name: str, polygon: list):
-        self.rois[uuid] = (name, [(int(x), int(y)) for x, y in polygon])
+    def add_roi(self, uuid: str, name: str, polygon: Optional[list]):
+        """Add or replace an ROI; a polygon of None is a pseudo-ROI entry
+        (it has a spectrum only when :meth:`open_ref` made it)."""
+        coords = None if polygon is None else [(int(x), int(y)) for x, y in polygon]
+        self.rois[uuid] = (name, coords)
         self.publish()
 
     def update_roi(self, uuid: str, name: str, polygon: list):
@@ -324,6 +436,7 @@ class Explorer:
 
     def delete_roi(self, uuid: str):
         self.rois.pop(uuid, None)
+        self._datasets.pop(uuid, None)
         self.publish()
 
     # ------------------------------------------------- material params
@@ -339,6 +452,9 @@ class Explorer:
         self.sample_thickness = thickness
         self.publish()
 
+    def update_material_calculation(self):
+        self.publish()
+
     # ------------------------------------------------------- publish
     def publish(self):
         """Publish the plot series and the intensity image of the current
@@ -347,11 +463,15 @@ class Explorer:
         if self.pipeline.input is None or final is None:
             self.plot = PlotData()
             return
-        poly_rois = [(u, name, poly) for u, (name, poly) in self.rois.items()]
+        poly_rois = [(u, name, poly) for u, (name, poly) in self.rois.items()
+                     if poly is not None]
         masks, roi_key = self._roi_masks(poly_rois, final)
-        optical = self._optical_request(poly_rois)
+        optical = self._optical_request(poly_rois, final.n_freq)
+        # pseudo entries build no mask, but a pseudo entry added, renamed or
+        # deleted still changes the key of what the publisher caches
+        pseudo_key = tuple((u, name) for u, (name, poly) in self.rois.items() if poly is None)
         host = self.publisher.publish(
-            self.pipeline, masks, roi_key, tuple(self.pixel_selected), optical
+            self.pipeline, masks, (roi_key, pseudo_key), tuple(self.pixel_selected), optical
         )
         plot = PlotData()
         for key in ("time", "signal", "frequencies", "signal_fft", "phase_fft",
@@ -365,32 +485,66 @@ class Explorer:
             plot.roi_signal[uuid] = (name, host["roi_trace"][i])
             plot.roi_signal_fft[uuid] = (name, host["roi_amp"][i])
             plot.roi_phase[uuid] = (name, host["roi_ph"][i])
+        for uuid, (name, poly) in self.rois.items():
+            data = self._datasets.get(uuid) if poly is None else None
+            if data is not None:
+                plot.roi_signal[uuid] = (name, data[0])
+                plot.roi_signal_fft[uuid] = (name, data[1])
+                plot.roi_phase[uuid] = (name, data[2])
         if optical is not None:
             plot.refractive_index = host["refractive_index"]
             plot.absorption_coefficient = host["absorption_coefficient"]
             plot.extinction_coefficient = host["extinction_coefficient"]
-        plot.available_references = [name for _u, name, _p in poly_rois]
+        plot.available_references = [name for name, _p in self.rois.values()]
         plot.available_samples = plot.available_references + [SELECTED_PIXEL]
         self.plot = plot
 
-    def _optical_request(self, poly_rois) -> Optional[dict]:
+    def _polygon_rois(self) -> dict:
+        return {u: entry for u, entry in self.rois.items() if entry[1] is not None}
+
+    def _optical_request(self, poly_rois, nf: int) -> Optional[dict]:
         """The optical-property selection (``data_thread.rs:1489-1559``):
-        the reference is an ROI, the sample an ROI or the selected pixel;
-        None when either does not resolve."""
-        index = {}
-        for i, (_u, name, _p) in enumerate(poly_rois):
-            index.setdefault(name, i)  # the first ROI of a name wins
-        if self.reference_selection not in index:
+        the reference and the sample each resolve by name to the first ROI
+        of that name, a polygon ROI (its index in ``poly_rois``) or a loaded
+        pulse (its host amplitude and phase, mode "pseudo"); the sample may
+        also be the selected pixel. None when either does not resolve. A
+        pulse whose bin count differs from the final slot's ``nf`` (another
+        time axis, e.g. after a tilt) is skipped with one warning per
+        (selection, bins) pair."""
+        roi_index = {u: i for i, (u, _n, _p) in enumerate(poly_rois)}
+
+        def resolve(name):
+            uuid = next((u for u, (n, _p) in self.rois.items() if n == name), None)
+            if uuid is None:
+                return None
+            if uuid in roi_index:
+                return "roi", roi_index[uuid], None
+            data = self._datasets.get(uuid)
+            if data is None:
+                return None
+            if len(data[1]) != nf:
+                key = (uuid, len(data[1]), nf)
+                if key not in self._warned_optical:
+                    self._warned_optical.add(key)
+                    log.warning(
+                        "optical selection %r skipped: its spectrum has %d frequency "
+                        "bins but the scan has %d (different time axis); reload it "
+                        "after opening this scan", name, len(data[1]), nf)
+                return None
+            return "pseudo", 0, np.stack([data[1], data[2]]).astype(np.float32)
+
+        ref = resolve(self.reference_selection)
+        if ref is None:
             return None
-        opt = {"ref_idx": index[self.reference_selection],
+        opt = {"ref_mode": ref[0], "ref_idx": ref[1], "ref_pseudo": ref[2],
                "thickness": self.sample_thickness}
         if self.sample_selection == SELECTED_PIXEL:
             opt["samp_mode"] = "pixel"
-        elif self.sample_selection in index:
-            opt["samp_mode"] = "roi"
-            opt["samp_idx"] = index[self.sample_selection]
-        else:
+            return opt
+        samp = resolve(self.sample_selection)
+        if samp is None:
             return None
+        opt.update(samp_mode=samp[0], samp_idx=samp[1], samp_pseudo=samp[2])
         return opt
 
     def _roi_masks(self, poly_rois, final) -> tuple[torch.Tensor, tuple]:
@@ -415,3 +569,36 @@ class Explorer:
             self._mask_stack = torch.as_tensor(stack, device=self.device)
             self._mask_key = key
         return self._mask_stack, key
+
+
+def _align_reference(signal, time: np.ndarray, scan_time: np.ndarray) -> np.ndarray:
+    """Resize and align a reference pulse onto the scan's time axis
+    (``data_thread.rs:405-481``): placed by the offset of its first sample
+    in steps of its own dt, zero-filled; both adjustments are logged."""
+    signal = np.asarray(signal, np.float32)
+    if len(scan_time) == len(signal) and (
+        len(time) == 0 or abs(scan_time[0] - time[0]) <= 1e-9
+    ):
+        return signal
+    target_len = len(scan_time)
+    if len(signal) != target_len:
+        log.warning("reference pulse resized from %d to %d samples to match the "
+                    "scan's time axis", len(signal), target_len)
+    out = np.zeros(target_len, np.float32)
+    if len(scan_time) > 1 and len(time) > 1:
+        ref_dt = time[1] - time[0]
+        scan_dt = scan_time[1] - scan_time[0]
+        if abs(float(ref_dt) - float(scan_dt)) > 1e-9:
+            log.warning("time steps of scan (%.4g ps) and reference (%.4g ps) do not "
+                        "match; the aligned reference trace is approximate",
+                        float(scan_dt), float(ref_dt))
+        offset = int(np.round((scan_time[0] - time[0]) / ref_dt))
+        src_start = offset if offset > 0 else 0
+        dst_start = -offset if offset < 0 else 0
+        copy_len = min(len(signal) - src_start, target_len - dst_start)
+        if copy_len > 0:
+            out[dst_start: dst_start + copy_len] = signal[src_start: src_start + copy_len]
+        return out
+    n = min(target_len, len(signal))
+    out[:n] = signal[:n]
+    return out

@@ -1,10 +1,10 @@
 """Built-in filter stages.
 
-Port of ``thz_image_explorer_tpu/pipeline/filters.py``: the time-domain
-band-passes before the FFT and after the iFFT, the frequency-domain
-band-pass, the water-vapor notch and the deconvolution, with the same
-uuids, parameters and defaults (the reference's ``src/filters/``). Tilt
-compensation is not ported yet.
+Port of ``thz_image_explorer_tpu/pipeline/filters.py``: tilt
+compensation, the time-domain band-passes before the FFT and after the
+iFFT, the frequency-domain band-pass, the water-vapor notch and the
+deconvolution, with the same uuids, parameters and defaults (the
+reference's ``src/filters/``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from thz_image_explorer_tpu_torch.assets.water_lines import WATER_LINES_THZ
 from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.ops import bandpass as bp
 from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+from thz_image_explorer_tpu_torch.ops import tilt
 from thz_image_explorer_tpu_torch.pipeline.stage import (
     FilterConfig,
     FilterDomain,
@@ -28,6 +29,37 @@ from thz_image_explorer_tpu_torch.pipeline.stage import (
 )
 
 log = logging.getLogger(__name__)
+
+
+@register_filter
+class TiltCompensation(FilterStage):
+    """Per-pixel time shifts for tilted samples
+    (``tilt_compensation.rs:97-226``); tilts in degrees (range ±15).
+    Inactive by default like every toggleable filter at startup. The only
+    stage that changes the time axis's length: the executor replans the
+    frequency axis from ``host_time_out``."""
+
+    def __init__(self):
+        self.tilt_x = 0.0
+        self.tilt_y = 0.0
+        self.active = False
+
+    def config(self) -> FilterConfig:
+        return FilterConfig(
+            name="Tilt Compensation",
+            description="Compensate misalignment of the sample along x and y.",
+            domain=FilterDomain.TIME_BEFORE_FFT_PRIO_FIRST,
+        )
+
+    def apply(self, cube: ScanCube, context: StageContext) -> ScanCube:
+        return tilt.tilt_compensate(cube, self.tilt_x, self.tilt_y,
+                                    valid_wh=context.valid_wh, host_time=context.time)
+
+    def host_time_out(self, time: np.ndarray, cube: ScanCube, valid_wh) -> np.ndarray:
+        num_steps = tilt.geometry(cube, self.tilt_x, self.tilt_y, valid_wh)
+        if num_steps is None:
+            return time
+        return tilt.extended_time(time, num_steps)
 
 
 class _TimeBandPass(FilterStage):
@@ -194,7 +226,7 @@ class Deconvolution(FilterStage):
             if psf is None or not psf.is_loaded:
                 log.error("No PSF loaded; skipping deconvolution.")
                 return cube
-            time = cube.time.cpu().numpy()
+            time = context.time if context.time is not None else cube.time.cpu().numpy()
             # keyed on the PSF's content, not its id(): a new PSF allocated
             # at a freed one's address must not hit a stale plan
             key = (

@@ -97,8 +97,10 @@ class Publisher:
         ``masks``: (R, X, Y) f32 ROI stack on the final slot's grid and
         ``roi_key`` a hashable that changes whenever it does; ``pixel``
         the selected pixel at native resolution. ``optical`` (optional):
-        ``ref_idx`` (ROI index of the reference), ``samp_mode`` ("roi" or
-        "pixel"), ``samp_idx`` and ``thickness`` (m)."""
+        ``ref_mode`` ("roi" or "pseudo"), ``ref_idx`` (ROI index of the
+        reference), ``ref_pseudo`` ((2, F) host amplitude and phase of a
+        loaded pulse), ``samp_mode`` ("roi", "pixel" or "pseudo"),
+        ``samp_idx``, ``samp_pseudo`` and ``thickness`` (m)."""
         raw, raw_fd, final = pipeline.input, pipeline.raw_fd_view(), pipeline.output
         key = (pipeline.run_epoch, roi_key)
         if key != self._key:
@@ -126,14 +128,17 @@ class Publisher:
         )
         # optical properties (data_thread.rs:1489-1559)
         if optical is not None:
-            ref_amp = red["roi_amp"][optical["ref_idx"]]
-            ref_ph = red["roi_ph"][optical["ref_idx"]]
-            if optical["samp_mode"] == "roi":
-                samp_amp = red["roi_amp"][optical["samp_idx"]]
-                samp_ph = red["roi_ph"][optical["samp_idx"]]
-            else:
-                samp_amp = sel["filtered_signal_fft"]
-                samp_ph = sel["filtered_phase_fft"]
+            def pick(side):
+                mode = optical[f"{side}_mode"]
+                if mode == "roi":
+                    i = optical[f"{side}_idx"]
+                    return red["roi_amp"][i], red["roi_ph"][i]
+                if mode == "pseudo":
+                    pseudo = torch.as_tensor(optical[f"{side}_pseudo"], device=final.device)
+                    return pseudo[0], pseudo[1]
+                return sel["filtered_signal_fft"], sel["filtered_phase_fft"]
+
+            (ref_amp, ref_ph), (samp_amp, samp_ph) = pick("ref"), pick("samp")
             n, alpha, kappa = calculate_optical_properties(
                 samp_amp, samp_ph, ref_amp, ref_ph, final.freq,
                 float(optical["thickness"]),

@@ -74,6 +74,14 @@ class FilterStage:
     def apply(self, cube: ScanCube, context: "StageContext") -> ScanCube:
         raise NotImplementedError
 
+    def host_time_out(self, time: np.ndarray, cube: ScanCube,
+                      valid_wh: Optional[tuple[int, int]]) -> np.ndarray:
+        """The host copy of the time axis ``apply`` gives ``cube`` (whose
+        host axis is ``time``). Only a stage that changes the axis's length
+        overrides it: the executor replans from it without reading the new
+        axis back from the device."""
+        return time
+
     def param_owner(self, key: str) -> Optional[object]:
         """The object that holds parameter ``key``: the stage's ``params``
         dataclass when it has that field (the deconvolution's), else the
@@ -96,13 +104,15 @@ class FilterStage:
 class StageContext:
     """Per-run services handed to stages: progress reporting (a fraction,
     None when done), cooperative cancellation, the PSF the deconvolution
-    uses (the reference routes it through ``gui_settings.psf``), and the
-    valid (width, height) of the stage's input."""
+    uses (the reference routes it through ``gui_settings.psf``), the
+    valid (width, height) of the stage's input and the host copy of its
+    time axis."""
 
     progress: Callable[[Optional[float]], None] = lambda _f: None
     cancelled: Callable[[], bool] = lambda: False
     psf: Optional[object] = None
     valid_wh: Optional[tuple[int, int]] = None
+    time: Optional[np.ndarray] = None
 
 
 _REGISTRY: dict[str, type] = {}
