@@ -23,12 +23,17 @@ view on the envelope's plain-load route, an Apply after tilt, the kernels
 at the new F and T, card vs CPU on a small tilted scan); the PSF tool on
 knife-edge traces of the reference fixture's shape (300 x 1001, 20 bands),
 its PSF exported, loaded and applied; a reference pulse loaded as the
-optical reference, and skipped once a tilt changes the bin count; and
-finally a 512x512x1024 scan with one live 3-D view. Each of the tilt, PSF
-tool and open_ref paths is driven with every kernel's launch count set to
-0 just before it and read just after. Each phase prints one JSON line; the
-script exits
-non-zero as soon as a phase fails, and prints as its last line
+optical reference, and skipped once a tilt changes the bin count; the
+web/CLI shell on the reference scan (``shell``: the worker with its
+coalescing FIFO, the two-phase open's preview, an HTTP server on loopback
+answering a 100-event slider drag, state polls, clicks, 3-D views, a web
+Apply and an aborted one, the web state against a direct Explorer, a small
+scan card vs CPU through two WebApps, and ``psf-diagnostics`` in a
+subprocess); and finally a 512x512x1024 scan with one live 3-D view. Each
+of the tilt, PSF tool, open_ref and shell paths is driven with every
+kernel's launch count set to 0 just before it and read just after. Each
+phase prints one JSON line; the script exits non-zero as soon as a phase
+fails, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 It needs a CUDA device and the package beside it; it imports nothing of
@@ -1587,6 +1592,351 @@ def check_open_ref_optical(optical, inputs):
 
 
 
+# ------------------------------------------------------- the web/CLI shell
+#: the web Apply's wait for its first fresh state, and every HTTP call's
+_SHELL_WAIT_S = 120.0
+
+
+class ShellClient:
+    """HTTP calls to the shell's server on 127.0.0.1, with the loopback
+    Host and Origin headers the page sends."""
+
+    def __init__(self, port):
+        self.port = port
+
+    def request(self, method, url, body=None):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=_SHELL_WAIT_S)
+        headers = {"Host": f"localhost:{self.port}"}
+        if body is not None:
+            body = json.dumps(body)
+            headers.update({"Content-Type": "application/json",
+                            "Origin": f"http://localhost:{self.port}"})
+        try:
+            conn.request(method, url, body=body, headers=headers)
+            r = conn.getresponse()
+            raw = r.read()
+        finally:
+            conn.close()
+        assert r.status == 200, (method, url, r.status, raw[:300])
+        return json.loads(raw)
+
+    def post(self, method, args=(), kwargs=None):
+        out = self.request("POST", "/api/command",
+                           {"method": method, "args": list(args), "kwargs": kwargs or {}})
+        assert out.get("ok") is True, (method, out)
+
+    def state(self):
+        return self.request("GET", "/api/state")
+
+    def fresh_state(self, pred=lambda s: True):
+        """Poll /api/state until a state built after everything queued
+        (neither busy nor the stale fallback) satisfies ``pred``."""
+        deadline = time.perf_counter() + _SHELL_WAIT_S
+        while time.perf_counter() < deadline:
+            s = self.state()
+            if not s.get("stale") and not s["busy"] and pred(s):
+                return s
+        raise AssertionError("no fresh state within the wait")
+
+
+def counts_since(before):
+    """Each kernel's launches since the ``read_counts()`` taken as ``before``."""
+    now = read_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def shell_commands(client_or_app, width, height):
+    """The main path's filters, ROIs and optical selection (``drive_commands``)
+    as shell commands: POSTs through a client, or ``WebApp.command``."""
+    cmds = [("set_filter_active", [u, True]) for u in
+            ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_notch")]
+    cmds += [("add_roi", [f"roi-{i}", f"ROI {i}", [list(p) for p in poly]])
+             for i, poly in enumerate(roi_polygons(width, height))]
+    cmds += [("set_reference", ["ROI 0"]), ("set_sample", ["Selected Pixel"])]
+    for method, args in cmds:
+        if isinstance(client_or_app, ShellClient):
+            client_or_app.post(method, args)
+        else:
+            client_or_app.command(method, args, {})
+
+
+def shell_series_diff(web_state, expected_state):
+    """Largest difference between two states' plot series, relative to
+    one ``_series`` rounding unit (1e-6 absolute) plus 1e-6 of the value."""
+    worst = 0.0
+    for key, ref in expected_state["plots"].items():
+        got = web_state["plots"][key]
+        pairs = []
+        if isinstance(ref, dict):
+            assert set(got) == set(ref), key
+            for u in ref:
+                pairs.append((got[u]["y"], ref[u]["y"]))
+        else:
+            pairs.append((got, ref))
+        for g, r in pairs:
+            assert len(g) == len(r), key
+            for a, b in zip(g, r):
+                if a is None or b is None:
+                    assert a is None and b is None, key
+                    continue
+                worst = max(worst, abs(a - b) / (1e-6 + 1e-6 * abs(b)))
+    return worst
+
+
+def shell_card_vs_cpu(t, cube):
+    """The shell's command list on a small scan through two WebApps, one on
+    the card and one on the CPU: every plot series of the two states within
+    the main path's atol 5e-5 / rtol 1e-4. Returns the worst excess over the
+    tolerance (<= 0 passes) and the points compared."""
+    from thz_image_explorer_tpu_torch.web import WebApp
+
+    states = []
+    for device in ("cuda", "cpu"):
+        app = WebApp(device=device)
+        try:
+            # arrays cannot be POSTed: the open goes to the worker itself
+            app.worker.send("open_arrays", t, cube, scan_metadata(1.0))
+            shell_commands(app, cube.shape[0], cube.shape[1])
+            app.command("set_fft_window_low", [1.2], {})
+            app.command("set_selected_pixel", [5, 7], {})
+            assert app.worker.join_idle(_SHELL_WAIT_S)
+            assert not app.worker.failures, list(app.worker.failures)
+            states.append(app.state())
+        finally:
+            app.worker.close()
+    worst, n = -np.inf, 0
+    for key, ref in states[1]["plots"].items():
+        got = states[0]["plots"][key]
+        pairs = ([(got[u]["y"], ref[u]["y"]) for u in ref] if isinstance(ref, dict)
+                 else [(got, ref)])
+        for g, r in pairs:
+            if not r or not isinstance(r[0], (int, float, type(None))):
+                continue
+            g = np.array([np.nan if v is None else v for v in g], np.float64)
+            r = np.array([np.nan if v is None else v for v in r], np.float64)
+            assert g.shape == r.shape and np.array_equal(np.isnan(g), np.isnan(r)), key
+            ok = ~np.isnan(r)
+            excess = np.abs(g[ok] - r[ok]) - (5e-5 + 1e-4 * np.abs(r[ok]))
+            if excess.size:
+                worst = max(worst, float(excess.max()))
+                n += int(excess.size)
+    assert worst <= 0.0, ("card vs CPU shell states differ", worst)
+    return worst, n
+
+
+def phase_shell(t, cube, seed):
+    """The shell on the card: the worker with its coalescing FIFO,
+    the two-phase open, the HTTP server, a slider drag, state polls, clicks,
+    the 3-D view, a web Apply, an abort, the web state against a direct
+    Explorer, card vs CPU, and ``psf-diagnostics`` in a subprocess. Every
+    launch count is set to 0 at its start; returns the phase's record, its
+    ``launches`` read at its end."""
+    import os
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from thz_image_explorer_tpu_torch.io.psf_npz import save_psf
+    from thz_image_explorer_tpu_torch.ops import rlsep
+    from thz_image_explorer_tpu_torch.pipeline import Explorer
+    from thz_image_explorer_tpu_torch.pipeline.worker import ExplorerWorker
+    from thz_image_explorer_tpu_torch.utils.dragbench import replay_drag
+    from thz_image_explorer_tpu_torch.web import WebApp, make_handler
+
+    width, height = cube.shape[0], cube.shape[1]
+    tmp = tempfile.TemporaryDirectory()
+    old_xdg = os.environ.get("XDG_CONFIG_HOME")
+    os.environ["XDG_CONFIG_HOME"] = f"{tmp.name}/config"
+    rec = {}
+    worker = ExplorerWorker(device="cuda")
+    server = thread = None
+    try:
+        # 1-2. the worker on the card; the open's preview, then its final
+        app = WebApp(worker, load_settings=False)
+        zero_counts()
+        t0 = time.perf_counter()
+        worker.send("open_arrays", t, cube, scan_metadata(0.5))
+        # the poll's closure queues behind the open and ahead of the device
+        # phase the open defers at the end of its host phase
+        preview = app.state()
+        rec["preview_ms"] = (time.perf_counter() - t0) * 1e3
+        assert preview["preview"] and preview["image"], "the first state carried no preview"
+        assert preview["image_shape"] == [width, height] and len(preview["plots"]["signal"])
+        assert not preview["plots"]["filtered_signal_fft"], "the preview has device results"
+        while time.perf_counter() - t0 < _SHELL_WAIT_S:
+            s = app.state()
+            if not s["preview"] and not s.get("stale"):
+                rec["final_ms"] = (time.perf_counter() - t0) * 1e3
+                break
+        assert "final_ms" in rec and len(s["plots"]["filtered_signal_fft"]) == len(t) // 2 + 1
+
+        # 3. the server on a free loopback port
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        client = ShellClient(server.server_address[1])
+
+        # 4. filters and ROIs as POSTs
+        shell_commands(client, width, height)
+        client.fresh_state(lambda s: len(s["rois"]) == 4)
+
+        # 5. a 100-event drag at 8 ms
+        before = read_counts()
+        drag = replay_drag(client.port, n_events=100, lo=1.0, hi=1.5, interval_s=0.008,
+                           settle_timeout_s=_SHELL_WAIT_S, app=app)
+        drag_counts = counts_since(before)
+        rec["drag"] = {k: v for k, v in drag.items() if k != "drag_note"}
+        rec["drag_specred_launches"] = drag_counts["specred"]
+        assert drag["drag_unsatisfied_events"] == 0, drag
+        assert drag_counts["specred"] == drag["drag_chain_updates"] > 0, (drag_counts, drag)
+
+        # 6. the state poll, PNG cache hit and miss (the midpoint alternates)
+        client.fresh_state()
+        hit = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            client.state()
+            hit.append((time.perf_counter() - t1) * 1e3)
+        miss = []
+        for i in range(20):
+            client.request("POST", "/api/command",
+                           {"method": "set_view", "args": ["midpoint", 40 + 20 * (i % 2)]})
+            t1 = time.perf_counter()
+            client.state()
+            miss.append((time.perf_counter() - t1) * 1e3)
+        client.request("POST", "/api/command", {"method": "set_view", "args": ["midpoint", 50]})
+        rec.update(state_hit_ms=statistics.median(hit), state_miss_ms=statistics.median(miss),
+                   state_hit_ms_runs=hit, state_miss_ms_runs=miss)
+
+        # 7. 20 clicks, each POST followed by the state that shows it
+        rng = np.random.default_rng(seed)
+        before = read_counts()
+        click_ms, last_px = [], None
+        for _ in range(20):
+            last_px = [int(rng.integers(width)), int(rng.integers(height))]
+            t1 = time.perf_counter()
+            client.post("set_selected_pixel", last_px)
+            client.fresh_state(lambda s, p=last_px: s["pixel"] == p)
+            click_ms.append((time.perf_counter() - t1) * 1e3)
+        click_counts = counts_since(before)
+        assert not any(click_counts.values()), click_counts
+        rec.update(click_ms=statistics.median(click_ms), click_ms_runs=click_ms,
+                   click_launches=click_counts)
+
+        # 8. the 3-D view endpoint, 11 times
+        before = read_counts()
+        vox_ms, vox = [], None
+        for _ in range(11):
+            t1 = time.perf_counter()
+            vox = client.request("GET", f"/api/voxels?threshold={_VIEW_OPACITY_THRESHOLD}")
+            vox_ms.append((time.perf_counter() - t1) * 1e3)
+        vox_counts = counts_since(before)
+        assert vox_counts["envelope"] == 11 and 0 < vox["n"] <= _VIEW_MAX_POINTS, \
+            (vox_counts, vox.get("n"))
+        rec.update(voxels_ms=statistics.median(vox_ms), voxels_ms_runs=vox_ms,
+                   voxels_points=vox["n"], voxels_launches=vox_counts)
+
+        # 11 (taken here, before the deconvolution). the web state against a
+        # direct Explorer on the card given the same commands
+        web_state = client.fresh_state()
+        web_image = worker.call(lambda ex: ex.image.copy(), timeout=_SHELL_WAIT_S)
+        direct = Explorer(device="cuda")
+        direct.open_arrays(t, cube, scan_metadata(0.5))
+        for u in ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_notch"):
+            direct.set_filter_active(u, True)
+        for i, poly in enumerate(roi_polygons(width, height)):
+            direct.add_roi(f"roi-{i}", f"ROI {i}", poly)
+        direct.set_reference("ROI 0")
+        direct.set_sample("Selected Pixel")
+        direct.set_fft_window_low(web_state["config"]["fft_window"][0])
+        direct.set_selected_pixel(*last_px)
+        expected = app._build_state(direct)
+        rec["web_vs_direct_series_units"] = shell_series_diff(web_state, expected)
+        rec["web_vs_direct_image_max_abs"] = float(np.abs(web_image - direct.image).max())
+        assert rec["web_vs_direct_series_units"] <= 1.0, rec["web_vs_direct_series_units"]
+        assert rec["web_vs_direct_image_max_abs"] <= 1e-6 * float(np.abs(direct.image).max())
+        del direct
+
+        # 9. the PSF as a file, then Apply by POST
+        psf_path = f"{tmp.name}/synthetic_psf.npz"
+        save_psf(psf_path, synthetic_psf())
+        client.post("open_psf", [psf_path])
+        client.post("set_filter_active", ["deconvolution", True])
+        client.fresh_state(lambda s: s["filters"]["deconvolution"]["active"])
+        applies = []
+        for _ in range(2):  # the first plans the bands on the host
+            before = read_counts()
+            t1 = time.perf_counter()
+            client.post("update_filter", ["deconvolution"], {"force": True})
+            s = client.fresh_state(lambda s: s["filters"]["deconvolution"]["progress"] is None)
+            applies.append(((time.perf_counter() - t1) * 1e3, counts_since(before)))
+        geometry = worker.explorer.pipeline.filters["deconvolution"]._plan_cache[1]
+        expected_launches = len(rlsep.launch_schedule(geometry.n_iter))
+        for _ms, counts in applies:
+            assert counts["rlsep_cluster"] == expected_launches == 9 and counts["rlsep"] == 0, \
+                counts
+        assert s["filters"]["deconvolution"]["time_ms"] > 0
+        rec.update(apply_first_ms=applies[0][0], apply_again_ms=applies[1][0],
+                   apply_rl_launches=[c["rlsep_cluster"] for _m, c in applies])
+
+        # 10. a second Apply, aborted by POST after its first checkpoint:
+        # the progress the deconvolution reports after a group of
+        # iterations triggers the POST (sent from the worker's thread)
+        aborted = threading.Event()
+        progress = worker.explorer.pipeline.progress
+
+        class AbortAfterFirstCheckpoint(dict):
+            def __setitem__(self, key, value):
+                super().__setitem__(key, value)
+                if key == "deconvolution" and value and 0 < value < 1 and not aborted.is_set():
+                    rec["abort_at_progress"] = value
+                    client.post("abort")
+                    aborted.t = time.perf_counter()
+                    aborted.set()
+
+        worker.explorer.pipeline.progress = AbortAfterFirstCheckpoint(progress)
+        try:
+            before = read_counts()
+            client.post("update_filter", ["deconvolution"], {"force": True})
+            assert aborted.wait(_SHELL_WAIT_S), "the Apply reached no checkpoint"
+            client.fresh_state()
+            rec["abort_to_responsive_ms"] = (time.perf_counter() - aborted.t) * 1e3
+        finally:
+            worker.explorer.pipeline.progress = dict(worker.explorer.pipeline.progress)
+        abort_counts = counts_since(before)
+        rec["abort_rl_launches"] = abort_counts["rlsep_cluster"]
+        assert 0 < abort_counts["rlsep_cluster"] < expected_launches, abort_counts
+        assert not worker.failures, list(worker.failures)
+
+        # 12. card vs CPU on a small scan, through two WebApps
+        ts, cs = synthetic_scan(24, 20, 128, seed=seed)
+        rec["card_vs_cpu_worst_excess"], rec["card_vs_cpu_points"] = shell_card_vs_cpu(ts, cs)
+
+        # 13. the CLI's psf-diagnostics on the PSF file, in a subprocess
+        r = subprocess.run([sys.executable, "-m", "thz_image_explorer_tpu_torch",
+                            "psf-diagnostics", psf_path], capture_output=True, text=True,
+                           timeout=300, cwd=str(Path(__file__).resolve().parent))
+        assert r.returncode == 0 and "PSF Diagnostics" in r.stdout, r.stderr[-2000:]
+        rec["psf_diagnostics_exit"] = r.returncode
+        torch.cuda.synchronize()
+        rec["launches"] = read_counts()
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+        worker.close()
+        if old_xdg is None:
+            os.environ.pop("XDG_CONFIG_HOME", None)
+        else:
+            os.environ["XDG_CONFIG_HOME"] = old_xdg
+        tmp.cleanup()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2187,6 +2537,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
 
+    # 8e. the shell: the worker, the two-phase open, the HTTP server
+    shell = phase_shell(t, cube, args.seed)
+    shell_launches = shell["launches"]
+    emit(phase="shell", shape=[width, height, n_time], card=smi,
+         compared=dict(web_vs_direct="plot series of /api/state vs the same Explorer commands "
+                                     "on the card, in _series rounding units (<= 1)",
+                       card_vs_cpu="24x20x128, two WebApps, atol 5e-5, rtol 1e-4"),
+         **shell)
+    torch.cuda.empty_cache()
+
     # 9. scale: the README's larger scan, 512x512x1024 (a 1 GiB cube)
     t5, cube5 = synthetic_scan(512, 512, 1024, seed=args.seed + 1)
     torch.cuda.reset_peak_memory_stats()
@@ -2272,6 +2632,7 @@ def main() -> int:
         "tilt": tilt_specred,
         "launches_psf_tool": psf_launches["specred"],
         "launches_open_ref": ref_launches["specred"],
+        "launches_shell": shell_launches["specred"],
     }, {
         "name": "rlsep_cluster",
         "route": "cuda",
@@ -2299,6 +2660,7 @@ def main() -> int:
         # an Apply after tilt, and the Apply on the PSF tool's PSF
         "launches_tilt": tilt_launches["rlsep_cluster"],
         "launches_psf_tool": psf_launches["rlsep_cluster"],
+        "launches_shell": shell_launches["rlsep_cluster"],
         "tool_psf": dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
                          ms=tool_rl_ms, plain_ms=tool_rl_plain_ms, bound_ms=tool_rl_bound,
                          bound_by=tool_rl_bound_by),
@@ -2315,6 +2677,7 @@ def main() -> int:
         "max_abs_err": tiled_err,
         "max_rel_err": tiled_rel,
         "over_limit_max_abs_err": over_err[0],
+        "launches_shell": shell_launches["rlsep"],
         "ms": statistics.median(tiled_ms),
         "ms_runs": tiled_ms,
         "plain_ms": rl_plain_ms,
@@ -2346,6 +2709,7 @@ def main() -> int:
         "shape": env_shape,
         # the live view after tilt (T = 1606, the plain-load route)
         "launches_tilt": tilt_launches["envelope"],
+        "launches_shell": shell_launches["envelope"],
         "tilt": tilt_envelope,
     }, {
         "name": "rl2d",
@@ -2369,6 +2733,7 @@ def main() -> int:
         "bound_by": rl2d_bound_by,
         "critical_path_ms": rl2d_floor,
         "cluster_max_taps": rl2d.CLUSTER_MAX_TAPS,
+        "launches_shell": shell_launches["rl2d"],
         # no single PyTorch call runs the Richardson-Lucy recurrence
         "library_ms": None,
         "shape": rl2d_shape + [9, 9],
@@ -2396,6 +2761,7 @@ def main() -> int:
         "library_ms": None,
         "shape": rl_shape,
         "group": 5,
+        "launches_shell": shell_launches["rlsep_grouped"],
     }]}), flush=True)
     print(smi, flush=True)
     # 11. the last line

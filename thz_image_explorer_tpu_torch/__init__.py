@@ -23,6 +23,11 @@ reference the port is tested against). Layout mirrors it module by module:
               and the :class:`~thz_image_explorer_tpu_torch.pipeline.
               explorer.Explorer` command facade
 ``psf_tool``  knife-edge measurements -> fitted PSF model -> ``.npz``
+``web``       the web shell: a page, its state poll and commands through
+              the :class:`~thz_image_explorer_tpu_torch.pipeline.worker.
+              ExplorerWorker`; ``cli`` the command-line shell
+              (``python -m thz_image_explorer_tpu_torch``); ``viz`` and
+              ``utils`` their host helpers
 ``convert``   JAX-side state (numpy leaves, PSF arrays, filter
               parameters, knife-edge measurements and fits) -> the
               port's, for the tests
@@ -34,6 +39,8 @@ The package never imports ``jax`` nor anything of ``thz_image_explorer_tpu``.
 """
 
 import torch
+
+__version__ = "0.1.0"
 
 # Full-f32 numerics everywhere: the masked-mean products feed
 # optical-property phase differences, and TF32 keeps only ~3 decimal

@@ -185,6 +185,25 @@ class HostScan:
     x_min: float = None
     y_min: float = None
 
+    def preview_image(self) -> np.ndarray:
+        """The intensity image in host numpy, for the open's preview:
+        per-pixel DC offset removed and squares summed (``io.rs:576-595``),
+        expanded as ``sum(d²) - 2·off·sum(d) + T·off²`` so no DC-free copy
+        of the cube is made."""
+        vw, vh = self.valid_wh
+        d = self.data[:vw, :vh]
+        off = np.asarray(d[:, :, 0], np.float64)
+        ss = np.einsum("xyt,xyt->xy", d, d, dtype=np.float64)
+        s = np.einsum("xyt->xy", d, dtype=np.float64)
+        n = d.shape[-1]
+        return (ss - 2.0 * off * s + n * off * off).astype(np.float32)
+
+    def preview_trace(self, px: int = 0, py: int = 0) -> np.ndarray:
+        """One pixel's raw trace with its DC offset removed (the preview's
+        pulse plot)."""
+        d = self.data[px, py]
+        return (d - d[0]).astype(np.float32)
+
 
 def open_scan_host(path: str) -> HostScan:
     """Read a scan file (``open_scan_from_thz``, ``io.rs:496-631``): first

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -27,6 +28,15 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+#: how many ``build`` calls are compiling right now (``building()``)
+_compiling = 0
+_compiling_lock = threading.Lock()
+
+
+def building() -> bool:
+    """True while some thread's :func:`build` runs nvcc: the shell shows
+    it as the pipeline's "building" phase."""
+    return _compiling > 0
 
 
 def _nvcc() -> str:
@@ -51,12 +61,24 @@ def build(names=SOURCES) -> dict[str, str]:
     all started together. Returns ``{name: compiler log}`` for the sources
     compiled now (``-Xptxas -v`` prints registers and shared memory);
     raises with the compiler's output if any build fails."""
+    missing = [name for name in names if not library_path(name).exists()]
+    if not missing:
+        return {}
+    global _compiling
+    with _compiling_lock:
+        _compiling += 1
+    try:
+        return _compile(missing)
+    finally:
+        with _compiling_lock:
+            _compiling -= 1
+
+
+def _compile(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,

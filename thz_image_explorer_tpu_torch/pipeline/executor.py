@@ -37,6 +37,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from thz_image_explorer_tpu_torch import kernels
 from thz_image_explorer_tpu_torch.data import ScanCube, frequency_axis, resolve_device
 from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft
 from thz_image_explorer_tpu_torch.ops.intensity import (
@@ -103,6 +104,13 @@ class Pipeline:
         self.cancelled: Callable[[], bool] = lambda: False
         #: uuid -> progress of the stage's running apply (None when idle)
         self.progress: dict[str, Optional[float]] = {uuid: None for uuid in self.filters}
+
+    @property
+    def phase(self) -> Optional[str]:
+        """"building" while ``kernels.build`` compiles a source (at a
+        kernel's first use, or the shell's ``--precompile``), else None:
+        the counterpart of the JAX package's "compiling" phase."""
+        return "building" if kernels.building() else None
 
     # ------------------------------------------------------------------
     def index_of(self, uuid: str) -> int:

@@ -4,7 +4,10 @@ Port of ``thz_image_explorer_tpu/pipeline/explorer.py`` (reference
 ``ConfigCommand`` API, ``config.rs:58-164``, and the ``main_thread``
 handlers, ``data_thread.rs:148-1050``) as plain synchronous methods. After
 every command the Explorer publishes a :class:`PlotData` snapshot of small
-host arrays; the cube itself never leaves the device.
+host arrays; the cube itself never leaves the device. A scan opens in two
+phases (a host preview, then the device phase), deferred through the
+worker of :mod:`thz_image_explorer_tpu_torch.pipeline.worker` when one is
+attached and run back to back otherwise.
 
 ``Explorer(device=None)`` runs on ``"cuda"`` and raises when CUDA is
 missing; it never moves to the CPU on its own (tests pass ``"cpu"``).
@@ -147,6 +150,14 @@ class Explorer:
         self.image: Optional[np.ndarray] = None
         self.file_path: Optional[str] = None
         self.housekeeping = HouseKeeping()
+        #: the two-phase open (``data_thread.rs:1242-1316`` paints the image
+        #: right after the load): ``defer`` is set by the worker; a pending
+        #: open is (epoch, HostScan, facade snapshot) until its device phase
+        self.defer = None
+        self._open_epoch = 0
+        self._pending_open = None
+        #: keeps the finalize's own publish from re-entering the finalize
+        self._finalizing = False
         self._mask_key = None
         self._mask_stack: Optional[torch.Tensor] = None
         self._poly_masks: dict = {}
@@ -160,22 +171,32 @@ class Explorer:
 
     # ------------------------------------------------------------ files
     def open_file(self, path: str):
-        """OpenFile (``data_thread.rs:589-740``): read the dotTHz file, move
-        the scan to the device, run the chain and publish."""
+        """OpenFile (``data_thread.rs:589-740``): read the dotTHz file, then
+        the two phases of :meth:`_open`."""
         self._open(thzio.open_scan_host(path), path)
 
     def open_arrays(self, time, data, metadata: Optional[thzio.DotthzMetadata] = None):
         """Open a scan held in memory: a (T,) time axis and a raw (X, Y, T)
-        cube (DC offset still in), with optional file metadata."""
+        cube (DC offset still in), with optional file metadata; the same two
+        phases as :meth:`open_file`."""
         self._open(thzio.open_scan_arrays(time, data, metadata), None)
 
     def _open(self, host: thzio.HostScan, path: Optional[str]):
-        # the device phase first: if it fails (e.g. out of memory) the
-        # facade still describes the previous scan
-        cube, _img = thzio.finalize_scan(host, self.device)
-        self.pipeline.set_input(cube)
+        """Phase 1, host only: metadata, ROIs, housekeeping and a preview
+        (the intensity image and the selected pixel's trace in host numpy)
+        are published at once. Phase 2 (:meth:`_finalize_open`), the device
+        copy and the first chain pass, is deferred through the worker when
+        one is attached (state reads between the phases see the preview)
+        and runs right away otherwise, so a direct caller sees the
+        single-phase contract."""
+        # taken before any change: a failed device phase rolls back to it
+        snapshot = self._open_snapshot()
         self.metadata = host.metadata
         self.file_path = path
+        if self.defer is not None:
+            # only a deferred device phase leaves the preview image on show;
+            # a direct open's own publish replaces it at once
+            self.image = host.preview_image()
         # ROIs serialized in metadata come back (data_thread.rs:646-711)
         self.rois = {
             str(_uuidlib.uuid4()): (label, coords)
@@ -185,11 +206,77 @@ class Explorer:
         self.pixel_selected = [0, 0]
         self.housekeeping = HouseKeeping.from_scan(host)
         self.housekeeping.apply_metadata(host.metadata.md)
-        self.publish()
+        plot = PlotData()
+        plot.time = host.time
+        plot.signal = host.preview_trace(0, 0)
+        plot.available_references = [name for name, _p in self.rois.values()]
+        plot.available_samples = plot.available_references + [SELECTED_PIXEL]
+        self.plot = plot
+        self._open_epoch += 1
+        self._pending_open = (self._open_epoch, host, snapshot)
+        if self.defer is not None:
+            self.defer("_finalize_open", self._open_epoch)
+        else:
+            self._finalize_open(self._open_epoch)
+
+    @property
+    def preview_pending(self) -> bool:
+        """True from the preview until the device phase has published."""
+        return self._pending_open is not None
+
+    def _open_snapshot(self) -> dict:
+        """The facade attributes phase 1 changes."""
+        return {
+            "metadata": self.metadata,
+            "file_path": self.file_path,
+            "image": self.image,
+            "rois": self.rois,
+            "_datasets": self._datasets,
+            "pixel_selected": self.pixel_selected,
+            "housekeeping": self.housekeeping,
+            "plot": self.plot,
+        }
+
+    def _finalize_open(self, epoch: int):
+        """Phase 2: the host-to-device copy, DC offset and cube on the
+        device, the first chain pass and the full publish. Epoch-guarded (a
+        newer open supersedes a stale deferred finalize) and idempotent.
+        ``preview_pending`` stays True through this phase's own publish;
+        ``_finalizing`` keeps that publish from re-entering here. If the
+        device copy fails, the facade rolls back to the previous scan, which
+        the pipeline still holds."""
+        pending = self._pending_open
+        if pending is None or pending[0] != epoch or self._finalizing:
+            return
+        _, host, snapshot = pending
+        self._finalizing = True
+        try:
+            try:
+                cube, _img = thzio.finalize_scan(host, self.device)
+            except BaseException:
+                for attr, value in snapshot.items():
+                    setattr(self, attr, value)
+                raise
+            self.pipeline.set_input(cube)
+            self.publish()
+        finally:
+            self._finalizing = False
+            # consumed on the way out, on failure too: a failed device phase
+            # must not be retried by every later command
+            if self._pending_open is pending:
+                self._pending_open = None
+
+    def _ensure_open_finalized(self):
+        """A command that needs the device state finalizes a pending open
+        first; this also completes an open whose deferred finalize an abort
+        drained."""
+        if self._pending_open is not None:
+            self._finalize_open(self._pending_open[0])
 
     def save_file(self, path: str):
         """SaveFile: initial cube + metadata with the ROIs
         (``data_thread.rs:741-768``)."""
+        self._ensure_open_finalized()
         inp = self.pipeline.input
         if inp is None:
             return
@@ -269,6 +356,7 @@ class Explorer:
         (host math: one trace), and registered as the pseudo-ROI
         "Reference File" (numbered after the first). Without a scan a 1x1
         zero scan on the pulse's axis is opened first."""
+        self._ensure_open_finalized()
         time = np.asarray(time, np.float32)
         if self.pipeline.input is None:
             self.pipeline.set_input(make_cube(time, np.zeros((1, 1, len(time)), np.float32),
@@ -292,6 +380,7 @@ class Explorer:
         """SaveVTU (``data_thread.rs:769-786``): export the 3-D voxel
         instances of the final slot (the dense extraction) with the current
         3-D view settings."""
+        self._ensure_open_finalized()
         out = self.pipeline.output
         inp = self.pipeline.input
         if out is None or inp is None:
@@ -319,6 +408,42 @@ class Explorer:
     def apply_psf(self, psf):
         """ApplyPSF from the PSF tool (``data_thread.rs:787-796``)."""
         self.pipeline.psf = psf
+
+    def apply_settings(self, s):
+        """Apply persisted preferences (the reference loads its
+        ``GuiSettingsContainer``, the serialized PSF included, before the
+        first frame: ``main.rs:144-161``, ``gui/application.rs:134-170``)."""
+        cfg = self.pipeline.config
+        cfg.fft_log_plot = bool(s.fft_log_plot)
+        cfg.avg_in_fourier_space = bool(s.avg_in_fourier_space)
+        cfg.scale_factor = int(s.downscaling)
+        self.sample_thickness = float(s.sample_thickness)
+        self.view3d.update(
+            opacity_threshold=float(s.opacity_threshold),
+            contrast=float(s.contrast_3d),
+            kernel_sigma=float(s.kernel_sigma),
+            kernel_radius=int(s.kernel_radius),
+        )
+        if s.psf is not None and s.psf.is_loaded:
+            self.pipeline.psf = s.psf
+
+    def collect_settings(self):
+        """The current preferences, for the exit autosave
+        (``main.rs:116-126``)."""
+        from thz_image_explorer_tpu_torch.utils.settings import Settings
+
+        cfg = self.pipeline.config
+        return Settings(
+            fft_log_plot=bool(cfg.fft_log_plot),
+            avg_in_fourier_space=bool(cfg.avg_in_fourier_space),
+            downscaling=int(cfg.scale_factor),
+            sample_thickness=float(self.sample_thickness),
+            opacity_threshold=float(self.view3d["opacity_threshold"]),
+            contrast_3d=float(self.view3d["contrast"]),
+            kernel_sigma=float(self.view3d["kernel_sigma"]),
+            kernel_radius=int(self.view3d["kernel_radius"]),
+            psf=self.pipeline.psf,
+        )
 
     # ------------------------------------------------- 3D view settings
     def set_3d_contrast(self, contrast: float):
@@ -368,25 +493,29 @@ class Explorer:
         """SetDownScaling re-runs from the scaling stage
         (``data_thread.rs:837-840``)."""
         self.pipeline.config.scale_factor = scale
+        self._ensure_open_finalized()
         self.pipeline.run_from(self.pipeline.scaling_index)
         self.publish()
 
     def _rerun_from_fft(self):
         """FFT-window commands re-run from the fft stage
         (``data_thread.rs:813-836``)."""
+        self._ensure_open_finalized()
         self.pipeline.run_from(self.pipeline.fft_index)
         self.publish()
 
     # ------------------------------------------------------- filters
-    def update_filter(self, uuid: str, force: bool = False):
+    def update_filter(self, uuid: str, *, force: bool = False):
         """UpdateFilter from one filter's position; ``force=True`` is the
         deconvolution's Apply button (the rerun-suppression rule does not
         hold it back)."""
+        self._ensure_open_finalized()
         self.pipeline.update_filter(uuid, force=force)
         self.publish()
 
     def update_filters(self):
         """Calculate All: the whole chain, the deconvolution included."""
+        self._ensure_open_finalized()
         self.pipeline.update_all()
         self.publish()
 
@@ -458,7 +587,9 @@ class Explorer:
     # ------------------------------------------------------- publish
     def publish(self):
         """Publish the plot series and the intensity image of the current
-        slots (the ``data_lock`` write, ``data_thread.rs:1336-1560``)."""
+        slots (the ``data_lock`` write, ``data_thread.rs:1336-1560``).
+        A pending open is finalized first."""
+        self._ensure_open_finalized()
         final = self.pipeline.output
         if self.pipeline.input is None or final is None:
             self.plot = PlotData()

@@ -54,8 +54,10 @@ def reduce_slots(pipeline, masks: torch.Tensor) -> dict[str, torch.Tensor]:
     spec_slot, wvec = pipeline.spectral_source()
     sr = lean_spectral_outputs(spec_slot.fft, wvec, masks, final.valid_wh)
     if pipeline.config.avg_in_fourier_space:
-        # ROI traces from polar means (math_tools.rs:496-529)
-        roi_trace = polar_irfft(sr["roi_amp"], sr["roi_ph"], final.n_time)
+        # ROI traces from polar means (math_tools.rs:496-529); with no ROI
+        # the batch is empty, which the FFT libraries refuse
+        roi_trace = (polar_irfft(sr["roi_amp"], sr["roi_ph"], final.n_time)
+                     if masks.shape[0] else sr["roi_amp"].new_zeros((0, final.n_time)))
         avg_signal = final.avg_data
     else:
         roi_trace = masked_mean_stack(final.data, masks)
