@@ -29,9 +29,14 @@ coalescing FIFO, the two-phase open's preview, an HTTP server on loopback
 answering a 100-event slider drag, state polls, clicks, 3-D views, a web
 Apply and an aborted one, the web state against a direct Explorer, a small
 scan card vs CPU through two WebApps, and ``psf-diagnostics`` in a
-subprocess); and finally a 512x512x1024 scan with one live 3-D view. Each
-of the tilt, PSF tool, open_ref and shell paths is driven with every
-kernel's launch count set to 0 just before it and read just after. Each
+subprocess); a 512x512x1024 scan with one live 3-D view; and finally
+multiple devices (``multi_device``: the pixel-grid mesh of ``parallel/``,
+its sharded update, Apply and live view on each rank's block, one rank over
+NCCL in this process against the single-device calls, 2 and 4 spawned ranks
+sharing the card over gloo against the one-rank results, 4 ranks at
+512x512x1024). Each of the tilt, PSF tool, open_ref, shell and
+multi-device paths is driven with every kernel's launch count set to 0 just
+before it and read just after (in each rank's own process). Each
 phase prints one JSON line; the script exits non-zero as soon as a phase
 fails, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1937,6 +1942,432 @@ def phase_shell(t, cube, seed):
     return rec
 
 
+# ------------------------------------------------------ the multi_device phase
+#: the sharded path's chain: the main path's filters, its 4 ROIs, a pixel
+_MD_CFG = dict(td_before_active=True, fd_active=True, notch_active=True)
+_MD_PIXEL = (77, 123)
+#: slider steps each rank runs (window_low 1.05, 1.10, ...)
+_MD_STEPS = 5
+#: a spawned world's limit, start-up and the first Apply's planning included
+_MD_TIMEOUT_S = 300.0
+#: sharded vs one rank: means, ROI and pixel series (the main path's
+#: tolerance; phases to its rtol times the running sum of their increments)
+_MD_ATOL, _MD_RTOL = 5e-5, 1e-4
+#: the Apply's cube, |sharded - one rank| <= this * max|one rank|
+_MD_APPLY_TOL = 1e-4
+#: per-pixel outputs that are not bit for bit: within this * max
+_MD_PIXEL_TOL = 1e-6
+_MD_SERIES = ("avg_signal", "roi_trace", "pix_sig", "pix_amp", "pix_ph", "avg_fft", "avg_amp",
+              "avg_ph", "roi_amp", "roi_ph")
+_MD_PHASES = ("pix_ph", "avg_ph", "roi_ph")
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, device):
+    """Host ms of ``fn()`` with a synchronize on each side, and its result."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+class CollectiveMeter:
+    """Counts the ``all_reduce`` calls the port makes, their bytes and
+    their host ms (a synchronize on each side) while the context is open."""
+
+    def __init__(self, device):
+        self.device, self.calls, self.bytes, self.ms = device, 0, 0, 0.0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._orig = dist.all_reduce
+
+        def metered(tensor, *a, **kw):
+            ms, out = host_ms(lambda: self._orig(tensor, *a, **kw), self.device)
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            self.ms += ms
+            return out
+
+        dist.all_reduce = metered
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._orig
+
+
+def md_masks(width, height, device):
+    """The main path's 4 polygon ROIs as an (R, X, Y) f32 stack."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops.roi import polygon_mask
+
+    return torch.as_tensor(np.stack([polygon_mask(p, (width, height)) for p in
+                                     roi_polygons(width, height)]).astype(np.float32),
+                           device=device)
+
+
+def md_view(data, cube, mesh=None):
+    """The live view (web.py's settings, the smoke's threshold) of the
+    final data: the block's with a mesh."""
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    t = cube.time.cpu().numpy()
+    kw = dict(mesh=mesh, origin=cube.origin, grid=cube.grid) if mesh is not None else {}
+    return voxel.extract_instances_topk(
+        data, float(t[-1] - t[0]), 1, (*cube.grid_wh, cube.n_time), max_points=_VIEW_MAX_POINTS,
+        opacity_threshold=_VIEW_OPACITY_THRESHOLD, contrast=2.0, kernel_sigma=3.0,
+        kernel_radius=9, **kw)
+
+
+def md_path(cube, t, mesh, device, n_steps=_MD_STEPS, apply=True):
+    """The sharded main path on ``cube`` (a block with a mesh): ``n_steps``
+    slider steps of ``lean_update``, one Apply of the deconvolution (default
+    parameters, the synthetic PSF) on the last step's data and one live
+    view of it. Returns (results, host ms of each step, Apply ms, view ms,
+    geometry)."""
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.parallel.step import StepConfig, StepParams, lean_update
+
+    masks = md_masks(*cube.grid_wh, device)
+    cfg = StepConfig(**_MD_CFG)
+    step_ms = []
+    for i in range(n_steps):
+        params = StepParams(window_low=1.0 + 0.05 * (i + 1))
+        ms, out = host_ms(lambda: lean_update(cube, params, cfg, masks, _MD_PIXEL, mesh), device)
+        step_ms.append(ms)
+    if not apply:
+        return out, step_ms, None, None, None
+    geometry = dec.plan_bands(dec.DeconvolutionParams(), synthetic_psf(), t, cube.grid_wh, 0.5, 0.5)
+    kw = dict(mesh=mesh, origin=cube.origin, grid=cube.grid) if mesh is not None else {}
+    apply_ms, out["apply"] = host_ms(lambda: dec.deconvolve_cube(out["data"], geometry, **kw),
+                                     device)
+    view_ms, out["view"] = host_ms(lambda: md_view(out["data"], cube, mesh), device)
+    return out, step_ms, apply_ms, view_ms, geometry
+
+
+def md_host(out, open_data, open_img, origin):
+    """A path's results as host numpy, for the comparisons."""
+    import torch
+
+    host = {k: (torch.view_as_real(v) if v.is_complex() else v).cpu().numpy()
+            for k, v in out.items() if k != "view"}
+    pos, rgba, *dims, thr = out["view"]
+    host.update(open_data=open_data.cpu().numpy(), open_img=open_img.cpu().numpy(),
+                origin=np.asarray(origin), view_pos=pos, view_rgba=rgba,
+                view_dims=np.asarray(dims), view_thr=np.asarray(thr))
+    return host
+
+
+def multi_device_rank(rank, world, store, npy, t, mode, outdir, device="cuda"):
+    """One rank of a spawned multi-device run (gloo, all ranks on one card):
+    open its block of the memory-mapped scan, drive the sharded path with
+    every launch count at 0 just before and read just after, then time the
+    collectives and a repeat Apply, check its kernel calls against their
+    plain versions on its block, and write ``rank<r>.npz`` and
+    ``rank<r>.json`` (``rank<r>.err`` on a failure). ``mode`` "scale": the
+    open and 3 steps only, with the peak device memory."""
+    try:
+        _multi_device_rank(rank, world, store, npy, t, mode, outdir, device)
+    except BaseException:
+        import traceback
+
+        Path(outdir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
+    import torch
+    import torch.distributed as dist
+
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import voxel
+    from thz_image_explorer_tpu_torch.parallel import mesh as pm
+    from thz_image_explorer_tpu_torch.parallel import open_arrays_sharded
+    from thz_image_explorer_tpu_torch.parallel.step import (StepConfig, StepParams, _spectrum,
+                                                              lean_update)
+
+    mesh = pm.init(device, backend="gloo", init_method=f"file://{store}", rank=rank,
+                   world_size=world, timeout_s=_MD_TIMEOUT_S)
+    res = dict(rank=rank, world=world, mesh=list(mesh.shape))
+    try:
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mm = np.load(npy, mmap_mode="r")
+        open_ms, (cube, img, _) = host_ms(lambda: open_arrays_sharded(
+            t, mm, mesh, metadata=scan_metadata(0.5), device=device), device)
+        res.update(open_ms=open_ms, block=list(mesh.block(None, cube.grid)))
+        if mode == "scale":
+            out, step_ms, *_ = md_path(cube, t, mesh, device, n_steps=3, apply=False)
+            assert bool(torch.isfinite(out["avg_amp"]).all()) and bool(torch.isfinite(out["img"]).all())
+            res.update(update_ms=step_ms, peak_bytes=torch.cuda.max_memory_allocated()
+                       if torch.device(device).type == "cuda" else None)
+            return
+        zero_counts()
+        out, step_ms, apply_ms, view_ms, geometry = md_path(cube, t, mesh, device)
+        res.update(launches=read_counts(), update_ms=step_ms, apply_ms=apply_ms, view_ms=view_ms)
+        # the collectives: of an update, of a repeat Apply, of a view
+        cfg, params = StepConfig(**_MD_CFG), StepParams(window_low=1.0 + 0.05 * _MD_STEPS)
+        masks = md_masks(*cube.grid, device)
+        kw = dict(mesh=mesh, origin=cube.origin, grid=cube.grid)
+        with CollectiveMeter(device) as m:
+            ms = [host_ms(lambda: lean_update(cube, params, cfg, masks, _MD_PIXEL, mesh),
+                          device)[0] for _ in range(3)]
+        res.update(update_metered_ms=ms, update_collective_ms=m.ms / 3,
+                   update_collective_bytes=m.bytes // 3, update_collective_calls=m.calls // 3)
+        with CollectiveMeter(device) as m:
+            res["apply_again_ms"] = host_ms(lambda: dec.deconvolve_cube(
+                out["data"], geometry, **kw), device)[0]
+        res.update(apply_collective_ms=m.ms, apply_collective_bytes=m.bytes,
+                   apply_collective_calls=m.calls)
+        with CollectiveMeter(device) as m:
+            res["view_again_ms"] = host_ms(lambda: md_view(out["data"], cube, mesh), device)[0]
+        res.update(view_collective_ms=m.ms, view_collective_bytes=m.bytes,
+                   view_collective_calls=m.calls)
+        res["bands"] = dec.band_split(geometry.n_iter, world)[rank].tolist()
+        # this rank's kernel calls against their plain versions, on its block
+        if torch.device(device).type == "cuda":
+            c, window = _spectrum(cube, params, cfg)
+            spec = torch.fft.rfft(c.data * window, dim=-1)
+            n = spec.shape[0] * spec.shape[1]
+            x0, y0 = cube.origin
+            stack = torch.cat([torch.ones((1, n), device=device),
+                               masks[:, x0: x0 + cube.width, y0: y0 + cube.height].reshape(-1, n)])
+            res["specred_max_abs_err"] = check_specred(spec.reshape(n, -1), stack, True,
+                                                       f"rank {rank} block")[0]
+            taps = voxel.gaussian_kernel1d(3.0, 9)
+            flat = out["data"].reshape(n, -1)
+            res["envelope_max_abs_err"] = check_envelope(flat, taps, 2.0, _VIEW_OPACITY_THRESHOLD,
+                                                         f"rank {rank} block")[0]
+            assert env.envelope.launches > 0
+        np.savez(Path(outdir, f"rank{rank}.npz"), **md_host(out, cube.data, img, cube.origin))
+    finally:
+        Path(outdir, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def spawn_world(world, npy, t, mode, workdir, device="cuda"):
+    """``world`` spawned ranks of :func:`multi_device_rank` sharing the card
+    over gloo; joined with a timeout (a rank still running is killed and
+    fails the phase). Returns each rank's (json, npz path)."""
+    import torch
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = Path(workdir, "store")
+    procs = [ctx.Process(target=multi_device_rank, daemon=True,
+                         args=(r, world, str(store), npy, t, mode, workdir, device))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + _MD_TIMEOUT_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 0.1))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    errors = {r: Path(workdir, f"rank{r}.err").read_text()[-3000:] for r in range(world)
+              if Path(workdir, f"rank{r}.err").exists()}
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{world} ranks: hung {hung}, exit codes "
+                             f"{[p.exitcode for p in procs]}, errors {errors}")
+    return [(json.loads(Path(workdir, f"rank{r}.json").read_text()),
+             Path(workdir, f"rank{r}.npz")) for r in range(world)]
+
+
+def md_phase_close(got, want):
+    """|got - want| of a phase series against atol + rtol * (running sum of
+    its |increments|): its error is the running sum of theirs."""
+    inc = np.abs(np.diff(want, axis=-1, prepend=0.0))
+    tol = _MD_ATOL + _MD_RTOL * np.cumsum(inc, axis=-1)
+    err = np.abs(got - want)
+    assert (err <= tol).all(), float(err.max())
+    return float(err.max())
+
+
+def md_compare(got, ref, label):
+    """One rank's results (``got``, host numpy) against the one-rank run's
+    (``ref``, whole grid): the open and the per-pixel outputs bit for bit or
+    within 1e-6 * max; the series at the main path's tolerance; the Apply
+    within 1e-4 * max; the live view's points apart from ties at the
+    threshold. Returns the largest differences."""
+    x0, y0 = (int(v) for v in got["origin"])
+    diffs, equal = {}, {}
+    for key in ("open_data", "open_img", "data", "img", "apply"):
+        g = got[key]
+        w = ref[key][x0: x0 + g.shape[0], y0: y0 + g.shape[1]]
+        d = float(np.nanmax(np.abs(g - w))) if g.size else 0.0
+        equal[key] = bool(np.array_equal(g, w, equal_nan=True))
+        tol = (_MD_APPLY_TOL if key == "apply" else _MD_PIXEL_TOL) * float(np.nanmax(np.abs(w)))
+        assert equal[key] or d <= tol, (label, key, d, tol)
+        diffs[key] = d
+    for key in _MD_SERIES:
+        if key in _MD_PHASES:
+            diffs[key] = md_phase_close(got[key], ref[key])
+        else:
+            np.testing.assert_allclose(got[key], ref[key], atol=_MD_ATOL, rtol=_MD_RTOL,
+                                       err_msg=f"{label} {key}")
+            diffs[key] = float(np.abs(got[key] - ref[key]).max())
+    # the live view: the same points, except ties at the threshold; the
+    # same alpha (one 1/63 step where the opacities are not bit for bit)
+    step = 1.0 / 63.0
+    assert float(got["view_thr"]) == float(ref["view_thr"]) or \
+        abs(float(got["view_thr"]) - float(ref["view_thr"])) <= step, label
+    np.testing.assert_array_equal(got["view_dims"], ref["view_dims"])
+    gk = {tuple(p): a for p, a in zip(np.round(got["view_pos"], 5), got["view_rgba"][:, 3])}
+    rk = {tuple(p): a for p, a in zip(np.round(ref["view_pos"], 5), ref["view_rgba"][:, 3])}
+    cut = max(np.floor(float(ref["view_thr"]) * 63), 1.0) / 63
+    only = [a for x, y in ((gk, rk), (rk, gk)) for k, a in x.items() if k not in y]
+    assert all(abs(a - cut) <= step + 1e-6 for a in only), (label, "view", only[:5])
+    common = set(gk) & set(rk)
+    assert len(common) > 0.99 * len(rk), (label, len(common), len(rk))
+    diffs["view_alpha"] = float(max((abs(gk[k] - rk[k]) for k in common), default=0.0))
+    assert diffs["view_alpha"] <= step + 1e-6, label
+    diffs["view_points_only_one_side"] = len(only)
+    return diffs, equal
+
+
+def phase_multi_device(t, cube, t5, cube5, name, smi, device="cuda"):
+    """The ``multi_device`` phase: one rank over NCCL in this process
+    against the single-device calls; 2 (1x2) and 4 (2x2) ranks sharing the
+    card over gloo against the one-rank results; 4 ranks at 512x512x1024
+    (open and 3 steps, peak memory per rank); the kernels' device time at
+    the block shapes. Returns the phase's record."""
+    import torch
+    import torch.distributed as dist
+
+    from thz_image_explorer_tpu_torch.io.dotthz import finalize_scan, open_scan_arrays
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+    from thz_image_explorer_tpu_torch.ops import voxel
+    from thz_image_explorer_tpu_torch.parallel import mesh as pm
+    from thz_image_explorer_tpu_torch.parallel import open_arrays_sharded
+    from thz_image_explorer_tpu_torch.parallel.step import StepConfig, StepParams, _spectrum
+
+    is_cuda = torch.device(device).type == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    npy = str(Path(tmp.name, "scan.npy"))
+    np.save(npy, cube)
+    record = dict(shape=list(cube.shape), card=smi, rois=4, pixel=list(_MD_PIXEL),
+                  filters=sorted(_MD_CFG), steps=_MD_STEPS,
+                  apply="default DeconvolutionParams (25 bands, 500 iterations), synthetic PSF",
+                  timing="host ms with a synchronize on each side; kernels: device time "
+                         "behind a spin (device_ms), in this process at the block shapes")
+
+    # 1. the single-device calls, then one rank over NCCL (gloo off the card)
+    whole, whole_img = finalize_scan(open_scan_arrays(t, cube, scan_metadata(0.5)), device)
+    ref_out, _, ref_apply_ms, ref_view_ms, geometry = md_path(whole, t, None, device)
+    ref = md_host(ref_out, whole.data, whole_img, (0, 0))
+    backend = "nccl" if is_cuda else "gloo"
+    mesh = pm.init(device, backend=backend, init_method=f"file://{tmp.name}/store1", rank=0,
+                   world_size=1)
+    try:
+        mm = np.load(npy, mmap_mode="r")
+        block, img1, _ = open_arrays_sharded(t, mm, mesh, metadata=scan_metadata(0.5),
+                                             device=device)
+        zero_counts()
+        out1, ms1, apply1_ms, view1_ms, _ = md_path(block, t, mesh, device)
+        counts1 = read_counts()
+        with CollectiveMeter(device) as m1:
+            md_path(block, t, mesh, device, n_steps=1, apply=False)
+        view1_again_ms = host_ms(lambda: md_view(out1["data"], block, mesh), device)[0]
+    finally:
+        dist.destroy_process_group()
+    one = md_host(out1, block.data, img1, block.origin)
+    diffs1, equal1 = md_compare(one, ref, "1 rank")
+    for k in ("specred", "rlsep_cluster", "envelope"):
+        assert counts1[k] > 0, (k, counts1)
+    record["world1"] = dict(
+        backend=backend, mesh=[1, 1], bit_for_bit=equal1, max_abs_diff=diffs1,
+        update_ms=ms1, update_ms_median=statistics.median(ms1[1:]),
+        single_device_apply_ms=ref_apply_ms, apply_ms=apply1_ms, view_ms=view1_ms,
+        view_again_ms=view1_again_ms, single_device_view_ms=ref_view_ms,
+        launches=counts1, update_collective_ms=m1.ms, update_collective_bytes=m1.bytes)
+    del out1, one, block, img1, ref_out
+    if is_cuda:
+        torch.cuda.empty_cache()
+
+    # 2. 2 and 4 ranks sharing the card over gloo
+    raw_spec = None
+    for world in (2, 4):
+        wdir = tempfile.mkdtemp(dir=tmp.name)
+        ranks = spawn_world(world, npy, t, "full", wdir, device)
+        per_rank = []
+        for res, path in ranks:
+            got = dict(np.load(path))
+            diffs, equal = md_compare(got, ref, f"{world} ranks, rank {res['rank']}")
+            for k in ("specred", "rlsep_cluster", "envelope"):
+                assert res["launches"][k] > 0, (world, res["rank"], k, res["launches"])
+            per_rank.append(dict(res, bit_for_bit=equal, max_abs_diff=diffs))
+            del got
+        # the kernels' device time at this world's block shapes (rank 0's)
+        x0, x1, y0, y1 = pm.Mesh(pm.grid_shape(world)).block(0, cube.shape[:2])
+        if raw_spec is None:
+            c, window = _spectrum(whole, StepParams(window_low=1.0 + 0.05 * _MD_STEPS),
+                                  StepConfig(**_MD_CFG))
+            raw_spec = torch.fft.rfft(c.data * window, dim=-1)
+            final = torch.as_tensor(ref["data"], device=device)
+            masks = md_masks(*cube.shape[:2], device)
+        n = (x1 - x0) * (y1 - y0)
+        spec_b = raw_spec[x0:x1, y0:y1].reshape(n, -1).contiguous()
+        stack = torch.cat([torch.ones((1, n), device=device),
+                           masks[:, x0:x1, y0:y1].reshape(-1, n)])
+        flat_b = final[x0:x1, y0:y1].reshape(n, -1).contiguous()
+        taps = voxel.gaussian_kernel1d(3.0, 9)
+        env_args = (2.0, _VIEW_OPACITY_THRESHOLD)
+        kernels_at_block = None
+        if is_cuda:
+            sr_b, sr_by = specred_bound_ms(n, spec_b.shape[1], int(stack.shape[0]), name)
+            env_b, env_by = envelope_bound_ms(n, flat_b.shape[1], 9, name)
+            kernels_at_block = dict(
+                n=n, specred_ms=device_ms(lambda: sr.spectral_reduction_sums(spec_b, stack, True)),
+                specred_bound_ms=sr_b, specred_bound_by=sr_by,
+                envelope_ms=device_ms(lambda: env.envelope(flat_b, taps, *env_args)),
+                envelope_bound_ms=env_b, envelope_bound_by=env_by)
+        record[f"world{world}"] = dict(
+            backend="gloo", mesh=list(pm.grid_shape(world)),
+            # a rank's first update makes its process's cuFFT plans
+            update_ms_first_largest_rank=max(r["update_ms"][0] for r in per_rank),
+            update_ms_largest_rank=max(statistics.median(r["update_ms"][1:]) for r in per_rank),
+            collective_share=max(r["update_collective_ms"] / statistics.median(
+                r["update_metered_ms"]) for r in per_rank),
+            apply_ms_largest_rank=max(r["apply_ms"] for r in per_rank),
+            apply_again_ms_largest_rank=max(r["apply_again_ms"] for r in per_rank),
+            view_ms_largest_rank=max(r["view_ms"] for r in per_rank),
+            view_again_ms_largest_rank=max(r["view_again_ms"] for r in per_rank),
+            kernels_at_block=kernels_at_block,
+            ranks=per_rank)
+        del spec_b, stack, flat_b
+
+    # 3. 512x512x1024 at 4 ranks: the open and 3 steps, peak memory per rank
+    del whole, whole_img, raw_spec, ref
+    if is_cuda:
+        torch.cuda.empty_cache()
+    npy5 = str(Path(tmp.name, "scan512.npy"))
+    np.save(npy5, cube5)
+    ranks5 = spawn_world(4, npy5, t5, "scale", tempfile.mkdtemp(dir=tmp.name), device)
+    record["world4_512"] = dict(
+        shape=list(cube5.shape), mesh=[2, 2],
+        update_ms_first_largest_rank=max(r["update_ms"][0] for r, _ in ranks5),
+        update_ms_largest_rank=max(statistics.median(r["update_ms"][1:]) for r, _ in ranks5),
+        open_ms_largest_rank=max(r["open_ms"] for r, _ in ranks5),
+        ranks=[r for r, _ in ranks5])
+    tmp.cleanup()
+    return record
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2599,8 +3030,20 @@ def main() -> int:
          specred_ms=sr_ms_512, specred_bound_ms=sr_bound_512, envelope_ms=env_ms_512,
          envelope_bound_ms=env_bound_512,
          timing="device time behind a spin (device_ms)")
-    del ex5, cube5, spec5, masks5_512, flat5
+    del ex5, spec5, masks5_512, flat5
     torch.cuda.empty_cache()
+
+    # 9b. multiple devices: one rank over NCCL, 2 and 4 ranks sharing the
+    # card over gloo (each rank's launch counts zeroed just before its path
+    # and read just after), 4 ranks at 512x512x1024
+    multi = phase_multi_device(t, cube, t5, cube5, name, smi)
+    emit(phase="multi_device", **multi)
+    del cube5
+    md_launches = {kernel: {"world1": multi["world1"]["launches"][kernel],
+                            **{f"world{w}": [r["launches"][kernel] for r in multi[f"world{w}"]["ranks"]]
+                               for w in (2, 4)}}
+                   for kernel in ("specred", "rlsep_cluster", "envelope")}
+    md_block = {f"world{w}": multi[f"world{w}"]["kernels_at_block"] for w in (2, 4)}
 
     # 10. the kernels line
     print(json.dumps({"kernels": [{
@@ -2633,6 +3076,10 @@ def main() -> int:
         "launches_psf_tool": psf_launches["specred"],
         "launches_open_ref": ref_launches["specred"],
         "launches_shell": shell_launches["specred"],
+        # per rank of the multi_device phase, and the block shapes' times
+        "launches_multi_device": md_launches["specred"],
+        "multi_device_block": {w: dict(n=v["n"], ms=v["specred_ms"], bound_ms=v["specred_bound_ms"])
+                               for w, v in md_block.items()},
     }, {
         "name": "rlsep_cluster",
         "route": "cuda",
@@ -2661,6 +3108,7 @@ def main() -> int:
         "launches_tilt": tilt_launches["rlsep_cluster"],
         "launches_psf_tool": psf_launches["rlsep_cluster"],
         "launches_shell": shell_launches["rlsep_cluster"],
+        "launches_multi_device": md_launches["rlsep_cluster"],
         "tool_psf": dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
                          ms=tool_rl_ms, plain_ms=tool_rl_plain_ms, bound_ms=tool_rl_bound,
                          bound_by=tool_rl_bound_by),
@@ -2710,6 +3158,10 @@ def main() -> int:
         # the live view after tilt (T = 1606, the plain-load route)
         "launches_tilt": tilt_launches["envelope"],
         "launches_shell": shell_launches["envelope"],
+        "launches_multi_device": md_launches["envelope"],
+        "multi_device_block": {w: dict(n=v["n"], ms=v["envelope_ms"],
+                                       bound_ms=v["envelope_bound_ms"])
+                               for w, v in md_block.items()},
         "tilt": tilt_envelope,
     }, {
         "name": "rl2d",

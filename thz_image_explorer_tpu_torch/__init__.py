@@ -22,6 +22,8 @@ reference the port is tested against). Layout mirrors it module by module:
 ``pipeline``  stage protocol, filters, the per-stage executor, publish
               and the :class:`~thz_image_explorer_tpu_torch.pipeline.
               explorer.Explorer` command facade
+``parallel``  the pixel-grid mesh over ``torch.distributed`` ranks, the
+              sharded update step and the per-rank partial open
 ``psf_tool``  knife-edge measurements -> fitted PSF model -> ``.npz``
 ``web``       the web shell: a page, its state poll and commands through
               the :class:`~thz_image_explorer_tpu_torch.pipeline.worker.

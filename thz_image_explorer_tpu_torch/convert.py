@@ -8,6 +8,7 @@ stages, so each stage can be compared on identical inputs.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -43,6 +44,17 @@ def cube_from_numpy(leaves: dict[str, np.ndarray], *, dx: Optional[float],
         valid_wh=(int(vwh[0]), int(vwh[1])),
         dx=dx, dy=dy, x_min=x_min, y_min=y_min, scaling=int(scaling),
     )
+
+
+def step_params_from_numpy(params) -> "StepParams":
+    """The port's ``parallel.step.StepParams`` from a JAX ``StepParams``
+    (any object with its fields, scalar leaves as numpy or Python numbers):
+    floats, and the water-line table as a float32 copy."""
+    from thz_image_explorer_tpu_torch.parallel.step import StepParams
+
+    values = {f.name: getattr(params, f.name) for f in dataclasses.fields(StepParams)}
+    lines = np.array(values.pop("water_lines"), np.float32)
+    return StepParams(**{k: float(np.asarray(v)) for k, v in values.items()}, water_lines=lines)
 
 
 #: the port's PSF from a JAX PSF's arrays as numpy, keyed as in the

@@ -37,6 +37,11 @@ class ScanCube:
     dx, dy          spatial steps in mm (None when unknown)
     x_min, y_min    scan origin in mm (None when unknown)
     scaling         current spatial downscale factor (1 = native)
+    origin          (x, y) of ``data[0, 0]`` in the pixel grid: (0, 0)
+                    except for one rank's block of a pixel-sharded cube
+                    (``parallel.mesh.shard_cube``)
+    grid            (X, Y) of the whole pixel grid the block lies in; None
+                    for a whole cube (the grid is then ``data``'s own)
     """
 
     time: torch.Tensor
@@ -55,6 +60,13 @@ class ScanCube:
     x_min: Optional[float] = None
     y_min: Optional[float] = None
     scaling: int = 1
+    origin: tuple[int, int] = (0, 0)
+    grid: Optional[tuple[int, int]] = None
+
+    @property
+    def grid_wh(self) -> tuple[int, int]:
+        """(X, Y) of the whole pixel grid (the block's for a whole cube)."""
+        return self.grid if self.grid is not None else (self.width, self.height)
 
     @property
     def width(self) -> int:

@@ -38,7 +38,9 @@ import torch
 
 from thz_image_explorer_tpu_torch.models.psf import PSF, create_psf_axes, gaussian
 from thz_image_explorer_tpu_torch.ops.firdesign import create_filter_bank
+from thz_image_explorer_tpu_torch.ops import rlsep
 from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable
+from thz_image_explorer_tpu_torch.parallel.mesh import all_sum, any_rank, grid_gather
 
 MIN_IMAGE_SIZE = 16  # deconvolution.rs:802
 DIRECT_CONV_MAX_ELEMS = 256  # convolve2d's direct-path threshold (:485)
@@ -373,11 +375,24 @@ def _spectral_band_sum(spec, gains, bd: dict, shape) -> torch.Tensor:
     return out[:, bd["shift"]: bd["shift"] + n_time].reshape(x, y, n_time)
 
 
+def band_split(n_iter, world: int) -> list[np.ndarray]:
+    """Each rank's bands for a sharded Apply: round-robin over the bands in
+    descending-``n_iter`` order (stable), so the ranks' Σ``n_iter`` differ
+    by at most one band's and each rank's subset keeps the ragged
+    trip-count order the Richardson-Lucy kernel relies on."""
+    order = np.argsort(-np.asarray(n_iter), kind="stable")
+    return [order[r::world] for r in range(world)]
+
+
 def deconvolve_cube(
     data: torch.Tensor,
     geometry: BandGeometry,
     progress: Callable[[float], None] = lambda _f: None,
     cancelled: Callable[[], bool] = lambda: False,
+    *,
+    mesh=None,
+    origin: tuple[int, int] = (0, 0),
+    grid: Optional[tuple[int, int]] = None,
 ) -> Optional[torch.Tensor]:
     """The banked deconvolution of the (X, Y, T) cube ``data``; returns the
     band-summed cube, or None when cancelled.
@@ -385,27 +400,69 @@ def deconvolve_cube(
     The host checks ``cancelled()`` and reports ``progress`` before each
     group of ``rlsep.GROUP`` Richardson-Lucy iterations (the JAX
     package checks between band chunks): with ``k`` groups, progress goes
-    ``0, 1/(k+1), ..., k/(k+1)`` and 1.0 at the end."""
+    ``0, 1/(k+1), ..., k/(k+1)`` and 1.0 at the end.
+
+    With a ``mesh`` (``parallel.mesh``), ``data`` is this rank's block at
+    ``origin`` of the (X, Y) ``grid`` (the geometry is planned for the
+    grid): the spectra, energy images, gains and band sum run on the block;
+    one ``grid_gather`` gives every rank the whole energy images, each rank
+    runs the RL kernel on its bands (:func:`band_split`), and one
+    ``all_sum`` of the zero-filled estimates gives every rank all bands.
+    At each checkpoint the ranks join their cancel flags (one 4-byte
+    ``all_reduce``, which waits for the device), so all stop together; a
+    rank whose bands need fewer checkpoints joins the rest after its run."""
     shape = tuple(data.shape)
-    bd, spec, imgs, padded = _rl_operands(data, geometry)
-    n_groups = 1
-
-    def between(done: int, total: int) -> bool:
-        nonlocal n_groups
-        n_groups = total
-        if cancelled():
-            return True
-        progress(done / (total + 1))
-        return False
-
-    u = rl_bands_separable(padded, bd["px"], bd["py"], bd["n_iter"], between=between)
+    grid = shape[:2] if grid is None else tuple(grid)
+    bd = _band_data(geometry, (*grid, shape[2]), data.device)
+    spec, power, xh, xt = _prepare_spectra(data, bd)
+    imgs = _energy_images(power, xh, xt, bd, shape)
+    if mesh is None:
+        padded = _reflect_pad(imgs, bd)
+        u = _rl_checkpointed(padded, bd["px"], bd["py"], bd["n_iter"], progress, cancelled,
+                             None)
+    else:
+        whole = grid_gather(imgs.permute(1, 2, 0), mesh, grid, origin)
+        padded = _reflect_pad(whole.permute(2, 0, 1).contiguous(), bd)
+        bands = band_split(bd["n_iter"], mesh.world)[mesh.rank]
+        mine = torch.as_tensor(bands, device=data.device)
+        sub = [t.index_select(0, mine).contiguous() for t in (padded, bd["px"], bd["py"])]
+        u_sub = _rl_checkpointed(*sub, bd["n_iter"][bands], progress, cancelled, mesh,
+                                 int(bd["n_iter"].max(initial=0)))
+        if u_sub is None:
+            return None
+        u = all_sum(torch.zeros_like(padded).index_copy_(0, mine, u_sub), mesh)
     if u is None:
         return None
-    progress(n_groups / (n_groups + 1))
-    pr, pc = bd["pad_r_max"], bd["pad_c_max"]
+    pr, pc = bd["pad_r_max"] + origin[0], bd["pad_c_max"] + origin[1]
     u = u[:, pr: pr + shape[0], pc: pc + shape[1]]
     # 0/0 -> NaN, as in the reference
     gains = torch.sqrt(torch.clamp(u, min=0.0) / imgs)
     out = _spectral_band_sum(spec, gains, bd, shape)
     progress(1.0)
     return out
+
+
+def _rl_checkpointed(padded, px, py, n_iter, progress, cancelled, mesh,
+                     max_iter: Optional[int] = None) -> Optional[torch.Tensor]:
+    """``rl_bands_separable`` with the checkpoints of ``max_iter`` (the
+    bands' own maximum for None): ``progress`` before each, and ``cancelled``
+    joined over the mesh's ranks, every rank at every checkpoint."""
+    max_iter = int(np.max(n_iter, initial=0)) if max_iter is None else max_iter
+    total = len(rlsep._groups(max_iter))
+    done = 0
+
+    def checkpoint() -> bool:
+        nonlocal done
+        stop = any_rank(cancelled(), mesh, padded.device)
+        if not stop:
+            progress(done / (total + 1))
+        done += 1
+        return stop
+
+    u = rl_bands_separable(padded, px, py, n_iter, between=lambda _d, _t: checkpoint())
+    while u is not None and done < total:
+        if checkpoint():
+            return None
+    if u is not None:
+        progress(total / (total + 1))
+    return u

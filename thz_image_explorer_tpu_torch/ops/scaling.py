@@ -43,4 +43,7 @@ def scale_cube(cube: ScanCube, scale: int,
         dx=cube.dx * scale if cube.dx is not None else None,
         dy=cube.dy * scale if cube.dy is not None else None,
         scaling=scale,
+        # a block of a sharded cube starts on a multiple of the factor
+        origin=(cube.origin[0] // scale, cube.origin[1] // scale),
+        grid=None if cube.grid is None else (cube.grid[0] // scale, cube.grid[1] // scale),
     )

@@ -260,6 +260,49 @@ def _launch(spec: torch.Tensor, masks: torch.Tensor, with_complex: bool) -> torc
     return out
 
 
+def lean_spectral_sums(raw_fft: torch.Tensor, masks: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None,
+                       with_complex: bool = False) -> Sums:
+    """The pixel sums behind :func:`lean_spectral_outputs`: one reduction
+    pass over the (X, Y, F) complex64 raw spectrum with the mask stack
+    ``[valid region, ROI 1, ..., ROI R]``. ``masks``: (R, X, Y) ROI stack;
+    ``valid``: (X, Y) 0/1 of the pixels inside the valid region, all ones
+    for None. Returns the (1 + R, F) sums of :func:`spectral_reduction_sums`
+    (amplitude, phase increment and, with ``with_complex``, real and
+    imaginary part). Sums over disjoint pixel blocks add up to the whole
+    grid's: the sharded update joins them before :func:`lean_spectral_finish`."""
+    x, y, nf = raw_fft.shape
+    n = x * y
+    mflat = masks.reshape(masks.shape[0], n).to(torch.float32)
+    first = (torch.ones((1, n), dtype=torch.float32, device=masks.device) if valid is None
+             else valid.reshape(1, n).to(torch.float32))
+    return spectral_reduction_sums(raw_fft.reshape(n, nf), torch.cat([first, mflat]),
+                                   with_complex=with_complex)
+
+
+def lean_spectral_finish(sums: Sums, wvec: torch.Tensor, roi_counts: torch.Tensor,
+                         valid_count: int) -> dict[str, torch.Tensor]:
+    """The publish's spectral means from :func:`lean_spectral_sums`'s sums:
+    divided by the valid-pixel count and the (R,) ROI pixel counts (an
+    empty ROI gives zeros), the per-frequency FD weight product ``wvec``
+    applied (it factors out of every pixel sum), the phases finished with
+    the cumsum. Keys ``avg_amp``, ``avg_ph``, ``roi_amp``, ``roi_ph`` and,
+    where the sums hold the real and imaginary parts, ``avg_fft``."""
+    amp_s, inc_s, cos_s, sin_s = sums
+    vcnt = max(int(valid_count), 1)
+    safe = torch.clamp(roi_counts, min=1.0)[:, None]
+    nonzero = (roi_counts > 0)[:, None]
+    out = dict(
+        avg_amp=amp_s[0] * wvec / vcnt,
+        avg_ph=finish_unwrap(inc_s[0] / vcnt),
+        roi_amp=torch.where(nonzero, amp_s[1:] * wvec[None, :] / safe, 0.0),
+        roi_ph=finish_unwrap(torch.where(nonzero, inc_s[1:] / safe, 0.0)),
+    )
+    if cos_s is not None:
+        out["avg_fft"] = torch.complex(cos_s[0], sin_s[0]) * wvec / vcnt
+    return out
+
+
 def lean_spectral_outputs(raw_fft: torch.Tensor, wvec: torch.Tensor,
                           masks: torch.Tensor, valid_wh,
                           with_complex: bool = False) -> dict[str, torch.Tensor]:
@@ -273,26 +316,6 @@ def lean_spectral_outputs(raw_fft: torch.Tensor, wvec: torch.Tensor,
     (R, X, Y) ROI stack. Returns ``avg_amp``, ``avg_ph``, ``roi_amp``,
     ``roi_ph`` (phases finished with the cumsum) and, with
     ``with_complex``, the pixel-mean complex spectrum ``avg_fft``."""
-    x, y, nf = raw_fft.shape
-    n = x * y
-    r = masks.shape[0]
-    mflat = masks.reshape(r, n).to(torch.float32)
-    mstack = torch.cat(
-        [torch.ones((1, n), dtype=torch.float32, device=masks.device), mflat]
-    )
-    amp_s, inc_s, cos_s, sin_s = spectral_reduction_sums(
-        raw_fft.reshape(n, nf), mstack, with_complex=with_complex
-    )
-    vcnt = max(int(valid_wh[0]) * int(valid_wh[1]), 1)
-    rcnt = mflat.sum(dim=1)
-    safe = torch.clamp(rcnt, min=1.0)[:, None]
-    nonzero = (rcnt > 0)[:, None]
-    out = dict(
-        avg_amp=amp_s[0] * wvec / vcnt,
-        avg_ph=finish_unwrap(inc_s[0] / vcnt),
-        roi_amp=torch.where(nonzero, amp_s[1:] * wvec[None, :] / safe, 0.0),
-        roi_ph=finish_unwrap(torch.where(nonzero, inc_s[1:] / safe, 0.0)),
-    )
-    if with_complex:
-        out["avg_fft"] = torch.complex(cos_s[0], sin_s[0]) * wvec / vcnt
-    return out
+    sums = lean_spectral_sums(raw_fft, masks, with_complex=with_complex)
+    roi_counts = masks.to(torch.float32).sum(dim=(1, 2))
+    return lean_spectral_finish(sums, wvec, roi_counts, int(valid_wh[0]) * int(valid_wh[1]))

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from thz_image_explorer_tpu_torch.ops.envelope import envelope
+from thz_image_explorer_tpu_torch.parallel.mesh import all_sum
 
 MAX_INSTANCES = 2_000_000  # threed_plot.rs:207
 C_M_PER_S = 300_000_000.0  # threed_plot.rs:153
@@ -129,12 +130,16 @@ def _topk_core(data, taps, contrast, opacity_threshold, radius: int, k: int):
 
 def _voxel_topk_impl(data, taps, contrast, opacity_threshold, radius: int, k: int):
     """``(values f16, flat indices i32, threshold f32)`` of the ``k``
-    brightest voxels, on the device. The view's cap threshold is the k-th
-    largest opacity (the reference's cap semantics applied at N = k),
-    taken in the f16 space the values are fetched in: f16 rounding is
-    monotonic, so ``vals >= threshold`` keeps exactly the points an exact
-    comparison would, the k-th included."""
-    vals, idx = _topk_core(data, taps, contrast, opacity_threshold, radius, k)
+    brightest voxels, on the device."""
+    return _as_f16(*_topk_core(data, taps, contrast, opacity_threshold, radius, k))
+
+
+def _as_f16(vals, idx):
+    """Top-k ``(vals, idx)`` as the unpacked fetch sends them. The view's
+    cap threshold is the k-th largest opacity (the reference's cap
+    semantics applied at N = k), taken in the f16 space the values are
+    fetched in: f16 rounding is monotonic, so ``vals >= threshold`` keeps
+    exactly the points an exact comparison would, the k-th included."""
     vals = vals.to(torch.float16)
     threshold = torch.clamp(vals[-1].float(), min=0.0)
     return vals, idx.to(torch.int32), threshold
@@ -145,7 +150,10 @@ def _voxel_topk_packed(data, taps, contrast, opacity_threshold, radius: int, k: 
     32-bit word ``idx << 6 | round(opacity * 63)``, held in int64 on the
     device (the host makes it ``np.uint32``). Needs ``data.numel() <
     2**26``. Returns ``(packed, threshold f32)``."""
-    vals, idx = _topk_core(data, taps, contrast, opacity_threshold, radius, k)
+    return _pack(*_topk_core(data, taps, contrast, opacity_threshold, radius, k))
+
+
+def _pack(vals, idx):
     threshold = torch.clamp(vals[-1], min=0.0)
     q = torch.clamp(torch.round(vals * _PACK_ALPHA_MAX), 0, _PACK_ALPHA_MAX).to(torch.int64)
     return (idx << _PACK_ALPHA_BITS) | q, threshold
@@ -153,10 +161,14 @@ def _voxel_topk_packed(data, taps, contrast, opacity_threshold, radius: int, k: 
 
 def _fetch_packed(data, taps, contrast, opacity_threshold, radius: int, k: int):
     """The packed fetch, decoded on the host: ``(flat indices int64,
-    opacities f32, keep mask, threshold)``. The keep mask is taken in the
-    quantized space, so the k-th point (== threshold) is not dropped by its
-    own rounding; q == 0 (alpha < 1/126) is never drawn."""
-    packed, thr = _voxel_topk_packed(data, taps, contrast, opacity_threshold, radius, k)
+    opacities f32, keep mask, threshold)``."""
+    return _decode_packed(*_voxel_topk_packed(data, taps, contrast, opacity_threshold, radius, k))
+
+
+def _decode_packed(packed, thr):
+    """The keep mask is taken in the quantized space, so the k-th point
+    (== threshold) is not dropped by its own rounding; q == 0 (alpha <
+    1/126) is never drawn."""
     packed = packed.cpu().numpy().astype(np.uint32)
     thr = float(thr)
     idx = (packed >> _PACK_ALPHA_BITS).astype(np.int64)
@@ -168,12 +180,38 @@ def _fetch_packed(data, taps, contrast, opacity_threshold, radius: int, k: int):
 def _fetch_unpacked(data, taps, contrast, opacity_threshold, radius: int, k: int):
     """The f16 + i32 fetch (any cube size), as :func:`_fetch_packed`
     returns it."""
-    vals, idx, thr = _voxel_topk_impl(data, taps, contrast, opacity_threshold, radius, k)
+    return _decode_unpacked(*_voxel_topk_impl(data, taps, contrast, opacity_threshold, radius, k))
+
+
+def _decode_unpacked(vals, idx, thr):
     vals = vals.cpu().numpy().astype(np.float32)
     idx = idx.cpu().numpy()
     thr = float(thr)
     keep = (vals >= max(thr, 1e-30)) & (vals > 0.0)
     return idx, vals, keep, thr
+
+
+def _sharded_topk(data, taps, contrast, opacity_threshold, radius: int, k: int, mesh,
+                  origin, grid):
+    """The ``k`` brightest voxels of the whole grid, on every rank: each
+    rank's top ``k`` of its block with global flat indices written into
+    its ``k`` of ``world * k`` zero-filled (value, index) slots, one
+    ``all_sum`` (float64: indices below 2**53 and f32 values are exact),
+    then the top ``k`` of the candidates. Every voxel of the global top
+    ``k`` is in its own rank's top ``k``."""
+    bx, by, t = data.shape
+    vals, idx = _topk_core(data, taps, contrast, opacity_threshold, radius, k)
+    lx = idx // (by * t)
+    ly = (idx - lx * (by * t)) // t
+    gidx = ((lx + origin[0]) * grid[1] + ly + origin[1]) * t + idx % t
+    slots = torch.zeros((2, mesh.world * k), dtype=torch.float64, device=data.device)
+    slots[0, mesh.rank * k: mesh.rank * k + vals.numel()] = vals.double()
+    slots[1, mesh.rank * k: mesh.rank * k + vals.numel()] = gidx.double()
+    slots = all_sum(slots, mesh)
+    # a stable sort keeps each rank's tie order (one rank: its own top k)
+    top, pos = torch.sort(slots[0], descending=True, stable=True)
+    n = min(k, grid[0] * grid[1] * t)
+    return top[:n].float(), slots[1][pos[:n]].long()
 
 
 def _view_geometry(gx, gy, gz, time_span: float, original_dims):
@@ -214,6 +252,9 @@ def extract_instances_topk(
     contrast: float = 2.0,
     kernel_sigma: float = 3.0,
     kernel_radius: int = 9,
+    mesh=None,
+    origin: tuple[int, int] = (0, 0),
+    grid: tuple[int, int] | None = None,
 ) -> tuple[np.ndarray, np.ndarray, float, float, float, float]:
     """The live 3-D view: ``(positions (N, 3), rgba (N, 4), cube_width,
     cube_height, cube_depth, threshold)`` of the ``max_points`` brightest
@@ -223,12 +264,28 @@ def extract_instances_topk(
     top-N by opacity (the reference's cap semantics, ``threed_plot.rs:
     207-214``). Cubes under 2**26 voxels take the packed fetch (4 bytes a
     point, 6-bit alpha), larger ones the f16 + i32 fetch. ``valid_grid``
-    restricts the view to the valid (w, h) region of the grid."""
+    restricts the view to the valid (w, h) region of the grid.
+
+    With a ``mesh`` (``parallel.mesh``), ``data`` is this rank's block at
+    ``origin`` of the (X, Y) ``grid``: the envelope runs on the block and
+    the candidates are joined (:func:`_sharded_topk`), so every rank
+    returns the view of the whole grid."""
     taps = gaussian_kernel1d(kernel_sigma, kernel_radius)
-    fetch = _fetch_packed if data.numel() < _PACK_IDX_LIMIT else _fetch_unpacked
-    idx, vals, keep, thr = fetch(data, taps, contrast, opacity_threshold, kernel_radius,
-                                 int(max_points))
-    return _topk_instances(idx, vals, keep, thr, tuple(data.shape), time_span, scaling,
+    k = int(max_points)
+    if mesh is None:
+        shape = tuple(data.shape)
+        fetch = _fetch_packed if data.numel() < _PACK_IDX_LIMIT else _fetch_unpacked
+        idx, vals, keep, thr = fetch(data, taps, contrast, opacity_threshold, kernel_radius, k)
+    else:
+        grid = tuple(data.shape[:2]) if grid is None else tuple(grid)
+        shape = (*grid, data.shape[2])
+        top = _sharded_topk(data, taps, contrast, opacity_threshold, kernel_radius, k, mesh,
+                            origin, grid)
+        if int(np.prod(shape)) < _PACK_IDX_LIMIT:
+            idx, vals, keep, thr = _decode_packed(*_pack(*top))
+        else:
+            idx, vals, keep, thr = _decode_unpacked(*_as_f16(*top))
+    return _topk_instances(idx, vals, keep, thr, shape, time_span, scaling,
                            original_dims, valid_grid)
 
 
