@@ -34,9 +34,15 @@ multiple devices (``multi_device``: the pixel-grid mesh of ``parallel/``,
 its sharded update, Apply and live view on each rank's block, one rank over
 NCCL in this process against the single-device calls, 2 and 4 spawned ranks
 sharing the card over gloo against the one-rank results, 4 ranks at
-512x512x1024). Each of the tilt, PSF tool, open_ref, shell and
-multi-device paths is driven with every kernel's launch count set to 0 just
-before it and read just after (in each rank's own process). Each
+512x512x1024); and the incremental ``Pipeline`` with its publish on each
+rank's block (``pipeline_mesh``: open, slider steps, clicks, a downscale by
+3, tilt, the Apply and a dense 3-D extraction; one rank over NCCL in
+lockstep with the single-device ``Pipeline``, bit for bit, and 2 and 4
+ranks over gloo against it, run by the multi-device phase's rank
+processes after their own work). Each of the tilt, PSF tool, open_ref,
+shell, multi-device and pipeline_mesh paths is driven with every kernel's
+launch count set to 0 just before it and read just after (in each rank's
+own process). Each
 phase prints one JSON line; the script exits non-zero as soon as a phase
 fails, and prints as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2098,9 +2104,11 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
     from thz_image_explorer_tpu_torch.parallel.step import (StepConfig, StepParams, _spectrum,
                                                               lean_update)
 
+    entered_at = time.time()
     mesh = pm.init(device, backend="gloo", init_method=f"file://{store}", rank=rank,
                    world_size=world, timeout_s=_MD_TIMEOUT_S)
-    res = dict(rank=rank, world=world, mesh=list(mesh.shape))
+    res = dict(rank=rank, world=world, mesh=list(mesh.shape), entered_at=entered_at,
+               init_s=time.time() - entered_at)
     try:
         if torch.device(device).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -2158,16 +2166,19 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
 
 
 def spawn_world(world, npy, t, mode, workdir, device="cuda"):
-    """``world`` spawned ranks of :func:`multi_device_rank` sharing the card
-    over gloo; joined with a timeout (a rank still running is killed and
-    fails the phase). Returns each rank's (json, npz path)."""
+    """``world`` spawned ranks of :func:`md_pm_rank` (``mode`` its
+    ``(seed, scale)``) sharing the card over gloo; joined with a timeout (a
+    rank still running is killed, and a rank's ``.err`` anywhere under
+    ``workdir`` fails the phase). Returns each rank's multi-device (json,
+    npz path) in ``workdir``."""
     import torch
 
     ctx = torch.multiprocessing.get_context("spawn")
     store = Path(workdir, "store")
-    procs = [ctx.Process(target=multi_device_rank, daemon=True,
+    procs = [ctx.Process(target=md_pm_rank, daemon=True,
                          args=(r, world, str(store), npy, t, mode, workdir, device))
              for r in range(world)]
+    spawned_at = time.time()
     for p in procs:
         p.start()
     deadline = time.monotonic() + _MD_TIMEOUT_S
@@ -2178,11 +2189,20 @@ def spawn_world(world, npy, t, mode, workdir, device="cuda"):
         if p.is_alive():
             p.kill()
             p.join(timeout=30)
-    errors = {r: Path(workdir, f"rank{r}.err").read_text()[-3000:] for r in range(world)
-              if Path(workdir, f"rank{r}.err").exists()}
+    errors = {str(e.relative_to(workdir)): e.read_text()[-3000:]
+              for e in sorted(Path(workdir).glob("**/rank*.err"))}
     if hung or errors or any(p.exitcode != 0 for p in procs):
         raise AssertionError(f"{world} ranks: hung {hung}, exit codes "
                              f"{[p.exitcode for p in procs]}, errors {errors}")
+    ranks = rank_results(workdir, world)
+    for res, _ in ranks:
+        # seconds from the spawn to the rank's entry: the process start
+        res["start_s"] = res["entered_at"] - spawned_at
+    return ranks
+
+
+def rank_results(workdir, world):
+    """Each spawned rank's (json, npz path) in ``workdir``."""
     return [(json.loads(Path(workdir, f"rank{r}.json").read_text()),
              Path(workdir, f"rank{r}.npz")) for r in range(world)]
 
@@ -2239,12 +2259,18 @@ def md_compare(got, ref, label):
     return diffs, equal
 
 
-def phase_multi_device(t, cube, t5, cube5, name, smi, device="cuda"):
+def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
     """The ``multi_device`` phase: one rank over NCCL in this process
     against the single-device calls; 2 (1x2) and 4 (2x2) ranks sharing the
     card over gloo against the one-rank results; 4 ranks at 512x512x1024
     (open and 3 steps, peak memory per rank); the kernels' device time at
-    the block shapes. Returns the phase's record."""
+    the block shapes. The 2- and 4-rank processes then run their
+    ``pipeline_mesh`` ranks (seed ``pm_seed``), and the 4-rank ones the
+    512x512 run after that (:func:`md_pm_rank`: one process start a rank
+    for all three). Returns ``(record, work)``: ``work`` the temporary
+    directory that holds the scan's ``scan.npy`` and, under
+    ``world<w>/pm``, the pipeline_mesh ranks' results, for
+    :func:`phase_pipeline_mesh` to read and clean up."""
     import torch
     import torch.distributed as dist
 
@@ -2299,11 +2325,18 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, device="cuda"):
     if is_cuda:
         torch.cuda.empty_cache()
 
-    # 2. 2 and 4 ranks sharing the card over gloo
+    # 2. 2 and 4 ranks sharing the card over gloo (the 4-rank processes
+    # then run the 512x512 scan of part 3)
+    npy5 = str(Path(tmp.name, "scan512.npy"))
+    np.save(npy5, cube5)
+    dir5 = Path(tmp.name, "world4", "512")
     raw_spec = None
     for world in (2, 4):
-        wdir = tempfile.mkdtemp(dir=tmp.name)
-        ranks = spawn_world(world, npy, t, "full", wdir, device)
+        wdir = Path(tmp.name, f"world{world}")
+        Path(wdir, "pm").mkdir(parents=True)
+        dir5.mkdir(parents=True, exist_ok=True)
+        scale = (npy5, t5, str(dir5)) if world == 4 else None
+        ranks = spawn_world(world, npy, t, (pm_seed, scale), str(wdir), device)
         per_rank = []
         for res, path in ranks:
             got = dict(np.load(path))
@@ -2352,18 +2385,560 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, device="cuda"):
         del spec_b, stack, flat_b
 
     # 3. 512x512x1024 at 4 ranks: the open and 3 steps, peak memory per rank
+    # (run by the 4-rank processes above)
     del whole, whole_img, raw_spec, ref
     if is_cuda:
         torch.cuda.empty_cache()
-    npy5 = str(Path(tmp.name, "scan512.npy"))
-    np.save(npy5, cube5)
-    ranks5 = spawn_world(4, npy5, t5, "scale", tempfile.mkdtemp(dir=tmp.name), device)
+    ranks5 = rank_results(dir5, 4)
     record["world4_512"] = dict(
         shape=list(cube5.shape), mesh=[2, 2],
         update_ms_first_largest_rank=max(r["update_ms"][0] for r, _ in ranks5),
         update_ms_largest_rank=max(statistics.median(r["update_ms"][1:]) for r, _ in ranks5),
         open_ms_largest_rank=max(r["open_ms"] for r, _ in ranks5),
         ranks=[r for r, _ in ranks5])
+    return record, tmp
+
+
+# ---------------------------------------------------- the pipeline_mesh phase
+#: the incremental Pipeline on a pixel-sharded cube: its filters (the main
+#: path's), the clicks, the downscale (3 divides neither the 1x2 nor the
+#: 2x2 blocks of 200), the tilt, the optical selection of every publish
+_PM_FILTERS = ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_notch")
+_PM_CLICKS = 10
+_PM_SCALE = 3
+_PM_TILT = (2.0, 2.0)
+_PM_OPTICAL = dict(ref_mode="roi", ref_idx=0, samp_mode="pixel", thickness=1e-3)
+_PM_SLOT_FIELDS = ("data", "fft", "amplitudes", "phases")
+#: published series that are one pixel's rows, axes or the whole image: bit
+#: for bit on every world; the means at the multi-device tolerance; n, alpha
+#: and kappa recomputed from each rank's own series
+_PM_PER_PIXEL = ("signal", "signal_fft", "phase_fft", "filtered_signal", "filtered_signal_fft",
+                 "filtered_phase_fft", "image", "time", "frequencies", "filtered_time",
+                 "filtered_frequencies")
+_PM_PHASES = ("avg_phase_fft", "roi_ph")
+_PM_OPTICAL_KEYS = ("refractive_index", "absorption_coefficient", "extinction_coefficient")
+
+
+class PmClient:
+    """One ``Pipeline`` (on a mesh's block or a whole cube) and its
+    ``Publisher``, driven by :func:`pm_script`'s commands."""
+
+    def __init__(self, pipeline, cube, device):
+        from thz_image_explorer_tpu_torch.pipeline.publish import Publisher
+
+        self.p, self.cube, self.device = pipeline, cube, device
+        self.publisher, self.pixel, self._masks = Publisher(), _MD_PIXEL, {}
+        pipeline.psf = synthetic_psf()
+        for uuid in _PM_FILTERS:
+            pipeline.filters[uuid].active = True
+
+    def publish(self):
+        """The publish: the main path's 4 polygon ROIs on the final grid
+        (keyed on it), n/alpha/kappa of the pixel against ROI 0."""
+        import torch
+
+        from thz_image_explorer_tpu_torch.ops.roi import polygon_mask
+
+        final = self.p.output
+        key = (final.grid_wh, final.scaling)
+        if key not in self._masks:
+            self._masks[key] = torch.as_tensor(np.stack([
+                polygon_mask(poly, final.grid_wh, final.scaling)
+                for poly in roi_polygons(*self.cube.grid_wh)]).astype(np.float32),
+                device=self.device)
+        return self.publisher.publish(self.p, self._masks[key], key, self.pixel, _PM_OPTICAL)
+
+    def dense(self):
+        """The dense extraction (the VTU export's; no file written)."""
+        from thz_image_explorer_tpu_torch.ops import voxel
+
+        final = self.p.output
+        t = self.p._host_time[len(self.p.slots) - 1]
+        kw = dict(time_span=float(t[-1] - t[0]), scaling=final.scaling,
+                  original_dims=(*self.cube.grid_wh, self.cube.n_time),
+                  valid_grid=self.p.valid_for(final), opacity_threshold=_VIEW_OPACITY_THRESHOLD,
+                  contrast=2.0, kernel_sigma=3.0, kernel_radius=9)
+        if self.p.mesh is not None:
+            kw.update(mesh=self.p.mesh, origin=final.origin, grid=final.grid_wh)
+        return voxel.extract_instances(final.data, **kw)
+
+
+def pm_window(v):
+    """A slider step: the FFT window's low edge to ``v``, the chain from
+    the FFT stage."""
+    def run(s):
+        s.p.config.fft_window[0] = v
+        s.p.run_from(s.p.fft_index)
+    return run
+
+
+def pm_click(xy):
+    def run(s):
+        s.pixel = xy
+    return run
+
+
+def pm_script(seed):
+    """The commands of the phase, as ``(name, kind, command)``; each command
+    is followed by a publish. Open; 5 slider steps (window low 1.05-1.25);
+    10 clicks; a downscale to 3 and back to 1; tilt to (2°, 2°) and off;
+    the Apply (default parameters, the synthetic PSF) and a repeat Apply;
+    a slider step after them."""
+    rng = np.random.default_rng(seed)
+
+    def scale(f):
+        def run(s):
+            s.p.config.scale_factor = f
+            s.p.run_from(s.p.scaling_index)
+        return run
+
+    def tilt(on):
+        def run(s):
+            stage = s.p.filters[TILT]
+            stage.active, (stage.tilt_x, stage.tilt_y) = on, _PM_TILT
+            s.p.update_filter(TILT)
+        return run
+
+    def apply(s):
+        s.p.filters[DEC].active = True
+        s.p.update_filter(DEC, force=True)
+
+    steps = [("open", "open", lambda s: s.p.set_input(s.cube))]
+    steps += [(f"slider{i + 1}", "slider", pm_window(1.0 + 0.05 * (i + 1)))
+              for i in range(_MD_STEPS)]
+    steps += [(f"click{i + 1}", "click", pm_click((int(x), int(y))))
+              for i, (x, y) in enumerate(rng.integers(0, 200, size=(_PM_CLICKS, 2)))]
+    steps += [("downscale3", "downscale", scale(_PM_SCALE)), ("downscale1", "downscale", scale(1)),
+              ("tilt", "tilt", tilt(True)), ("tilt_off", "tilt", tilt(False)),
+              ("apply", "apply", apply), ("apply_again", "apply", apply),
+              ("slider_after_apply", "slider_after_apply", pm_window(1.30))]
+    return steps
+
+
+def pm_run(client, step):
+    """One command and its publish."""
+    step[2](client)
+    return client.publish()
+
+
+def bits_checksum(t):
+    """Two integer sums of a tensor's 32-bit words, the second weighted by
+    position (as a (2,) int64 tensor): tensors with the same bits give the
+    same sums. The smoke compares ranks' slots with one process's this
+    way, without moving them."""
+    import torch
+
+    w = (torch.view_as_real(t) if t.is_complex() else t).contiguous().view(torch.int32).reshape(-1)
+    pos = torch.arange(w.numel(), device=w.device, dtype=torch.int32) % 65521 + 1
+    return torch.stack([w.sum(dtype=torch.int64), (w * pos).sum(dtype=torch.int64)])
+
+
+def slot_checksums(pipeline, blocks=None):
+    """``{"<slot>/<field>": [sum, weighted sum]}`` of every slot field (an
+    expanded zero spectrum, which nothing reads, is skipped); with
+    ``blocks`` (a function of the slot's grid giving ``(x0, x1, y0, y1)``),
+    of that block of each field."""
+    import torch
+
+    keys, sums, seen = [], [], {}
+    for i, c in enumerate(pipeline.slots):
+        for f in _PM_SLOT_FIELDS:
+            t = getattr(c, f)
+            if 0 in t.stride():
+                continue
+            if blocks is not None:
+                x0, x1, y0, y1 = blocks(c.grid_wh)
+                t = t[x0:x1, y0:y1]
+            key = (t.data_ptr(), tuple(t.shape), tuple(t.stride()))
+            if key not in seen:
+                seen[key] = len(sums)
+                sums.append(bits_checksum(t))
+            keys.append((f"{i}/{f}", seen[key]))
+    if not sums:
+        return {}
+    host = torch.stack(sums).cpu().tolist()
+    return {k: host[j] for k, j in keys}
+
+
+def same_bits(a, b):
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def dense_digest(result):
+    """``(points, threshold, sha256 of the positions' and colours' bytes)``
+    of a dense extraction: equal digests, the same points in the same
+    order."""
+    import hashlib
+
+    pos, rgba, *_, thr = result
+    h = hashlib.sha256(np.ascontiguousarray(pos).tobytes())
+    h.update(np.ascontiguousarray(rgba).tobytes())
+    return len(pos), float(thr), h.hexdigest()
+
+
+def pm_measure(client, device, label):
+    """After the script: the collectives of 3 slider steps and 3 clicks
+    (``CollectiveMeter``: ``all_reduce`` with a synchronize on each side),
+    and this rank's specred and envelope calls against their plain versions
+    on its block."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import voxel
+    from thz_image_explorer_tpu_torch.parallel.mesh import block_slice
+
+    out = {}
+    steps = [("s", "slider", pm_window(1.30 + 0.05 * k)) for k in range(1, 4)]
+    clicks = [("c", "click", pm_click((40 + k, 150 - k))) for k in range(3)]
+    for kind, script in (("slider", steps), ("click", clicks)):
+        with CollectiveMeter(device) as m:
+            ms = [host_ms(lambda: pm_run(client, step), device)[0] for step in script]
+        out[kind] = dict(ms=ms, collective_ms=m.ms / 3, collective_bytes=m.bytes // 3,
+                         collective_calls=m.calls // 3,
+                         collective_share=m.ms / 3 / statistics.median(ms))
+    if torch.device(device).type == "cuda":
+        p = client.p
+        spec = p.slots[p.fft_index].fft
+        n = spec.shape[0] * spec.shape[1]
+        final = p.output
+        whole_masks = client._masks[(final.grid_wh, final.scaling)]
+        stack = torch.cat([torch.ones((1, n), device=device),
+                           block_slice(whole_masks, final).reshape(-1, n)])
+        out["specred_max_abs_err"] = check_specred(spec.reshape(n, -1).contiguous(), stack, False,
+                                                   f"{label} block")[0]
+        flat = final.data.reshape(n, -1).contiguous()
+        out["envelope_max_abs_err"] = check_envelope(flat, voxel.gaussian_kernel1d(3.0, 9), 2.0,
+                                                     _VIEW_OPACITY_THRESHOLD, f"{label} block")[0]
+    return out
+
+
+def pm_check_launches(record, label):
+    """Each rank's launches per command: 1 specred launch per chain run and
+    none per click; 1-9 cluster RL launches per Apply, none elsewhere; no
+    half-iteration RL launch; 1 envelope launch per dense extraction."""
+    for name, kind, _ms, counts in record:
+        want_sr = 0 if kind == "click" or kind == "dense" else 1
+        assert counts["specred"] == want_sr, (label, name, counts)
+        if kind == "apply":
+            assert 1 <= counts["rlsep_cluster"] <= 9, (label, name, counts)
+        else:
+            assert counts["rlsep_cluster"] == 0, (label, name, counts)
+        assert counts["envelope"] == (1 if kind == "dense" else 0), (label, name, counts)
+        assert counts["rlsep"] == counts["rlsep_grouped"] == counts["rl2d"] == 0, (label, name)
+
+
+def pm_drive(client, device, seed, on_step=lambda step, host: None):
+    """:func:`pm_script` and the dense extraction on ``client``, each
+    command timed on the host (a synchronize on each side) with every
+    launch count set to 0 just before it and read just after. Returns
+    ``(per command (name, kind, ms, launches), dense result)``."""
+    record = []
+    for step in pm_script(seed):
+        zero_counts()
+        ms, host = host_ms(lambda: pm_run(client, step), device)
+        record.append((step[0], step[1], ms, read_counts()))
+        on_step(step, host)
+    zero_counts()
+    ms, dense = host_ms(client.dense, device)
+    record.append(("dense", "dense", ms, read_counts()))
+    return record, dense
+
+
+def largest(values):
+    """The largest of the ranks' values: elementwise for lists."""
+    if isinstance(values[0], list):
+        return [max(v) for v in zip(*values)]
+    return max(values)
+
+
+def pm_summary(record):
+    """Host ms by kind: the median of steps 2-5 of the slider, of clicks
+    2-10, every other command's own."""
+    by = {}
+    for name, kind, ms, _ in record:
+        by.setdefault(kind, []).append(ms)
+    out = {k: v if len(v) <= 2 else statistics.median(v[1:]) for k, v in by.items()}
+    out["open"] = by["open"][0]
+    return out
+
+
+def pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device="cuda"):
+    """One spawned rank of the ``pipeline_mesh`` phase (gloo, all ranks on
+    one card): its block of the memory-mapped scan into ``Pipeline(mesh=)``,
+    the script and the dense extraction, then the collectives and the
+    kernel checks on its block. Writes ``rank<r>.json`` (timings, launches,
+    slot checksums per command, the dense digest) and ``rank<r>.npz`` (the
+    published series per command and its block of the Apply)."""
+    try:
+        _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device)
+    except BaseException:
+        import traceback
+
+        Path(outdir, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def md_pm_rank(rank, world, store, npy, t, mode, outdir, device="cuda"):
+    """One spawned rank: :func:`multi_device_rank`'s work on the 200x200
+    scan into ``outdir``, then in the same process and a new group
+    :func:`pipeline_mesh_rank`'s into ``<outdir>/pm``; ``mode`` is
+    ``(seed, scale)``: the pipeline_mesh seed, and None or ``(npy, t,
+    outdir)`` of the 512x512 scan, whose open and 3 steps (the "scale"
+    mode) follow in a third group. The process starts, imports and makes
+    its CUDA context once for all of them."""
+    seed, scale = mode
+    multi_device_rank(rank, world, store, npy, t, "full", outdir, device)
+    pipeline_mesh_rank(rank, world, store + "_pm", npy, t, seed, str(Path(outdir, "pm")),
+                       device)
+    if scale is not None:
+        npy5, t5, outdir5 = scale
+        multi_device_rank(rank, world, store + "_512", npy5, t5, "scale", outdir5, device)
+
+
+def _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device):
+    import torch
+    import torch.distributed as dist
+
+    from thz_image_explorer_tpu_torch.parallel import mesh as pm
+    from thz_image_explorer_tpu_torch.parallel import open_arrays_sharded
+    from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
+
+    # host seconds from the group's start to the end of each part
+    t0 = time.perf_counter()
+    mesh = pm.init(device, backend="gloo", init_method=f"file://{store}", rank=rank,
+                   world_size=world, timeout_s=_MD_TIMEOUT_S)
+    res = dict(rank=rank, world=world, mesh=list(mesh.shape), checksums={},
+               wall_s=dict(init=time.perf_counter() - t0))
+    series = {}
+
+    def mark(part):
+        res["wall_s"][part] = time.perf_counter() - t0
+
+    try:
+        is_cuda = torch.device(device).type == "cuda"
+        if is_cuda:
+            torch.cuda.reset_peak_memory_stats()
+        block, _, _ = open_arrays_sharded(t, np.load(npy, mmap_mode="r"), mesh,
+                                          metadata=scan_metadata(0.5), device=device)
+        client = PmClient(Pipeline(device, mesh=mesh), block, device)
+        mark("open")
+
+        def keep(step, host):
+            res["checksums"][step[0]] = slot_checksums(client.p)
+            series.update({f"{step[0]}/{k}": v for k, v in host.items()})
+            if step[0] == "apply_again":
+                series["apply/data"] = client.p.output.data.cpu().numpy()
+                series["apply/origin"] = np.asarray(client.p.output.origin)
+
+        record, dense = pm_drive(client, device, seed, keep)
+        mark("script")
+        res.update(record=record, summary=pm_summary(record), dense=dense_digest(dense),
+                   measure=pm_measure(client, device, f"{world} ranks, rank {rank}"),
+                   peak_bytes=torch.cuda.max_memory_allocated() if is_cuda else None)
+        mark("measure")
+        np.savez(Path(outdir, f"rank{rank}.npz"), **series)
+        mark("saved")
+    finally:
+        Path(outdir, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.destroy_process_group()
+
+
+def pm_compare_series(got, ref, label, device, kinds, apply_scale):
+    """One rank's published series (``got``, by ``"<command>/<key>"``)
+    against the one-rank run's: per-pixel series and the image bit for bit
+    (after an Apply, the deconvolved trace and image within the Apply's
+    1e-4 * max), the means at the multi-device tolerance (phases: rtol × the
+    running sum of their increments); n/alpha/kappa equal to the formula of
+    the rank's own pixel and ROI 0 series. Returns the largest difference
+    of a mean."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops.optical import calculate_optical_properties
+
+    worst = 0.0
+    for key, want in ref.items():
+        name, series = key.split("/", 1)
+        g = got[key]
+        if kinds[name] == "apply" and series in ("filtered_signal", "image"):
+            # the image squares the traces: twice their relative tolerance
+            err = float(np.nanmax(np.abs(g - want)))
+            bound = (_MD_APPLY_TOL * apply_scale if series != "image"
+                     else 2 * _MD_APPLY_TOL * float(np.nanmax(np.abs(want))))
+            assert err <= bound, (label, key, err, bound)
+        elif series in _PM_PER_PIXEL:
+            assert np.array_equal(g, want, equal_nan=True), (label, key)
+        elif series in _PM_PHASES:
+            worst = max(worst, md_phase_close(g, want))
+        elif series in _PM_OPTICAL_KEYS:
+            continue
+        else:
+            np.testing.assert_allclose(g, want, atol=_MD_ATOL, rtol=_MD_RTOL, err_msg=f"{label} {key}")
+            worst = max(worst, float(np.abs(g - want).max()) if g.size else 0.0)
+    for name in {k.split("/", 1)[0] for k in ref}:
+        def get(k):
+            return torch.as_tensor(got[f"{name}/{k}"], device=device)
+        optical = calculate_optical_properties(
+            get("filtered_signal_fft"), get("filtered_phase_fft"), get("roi_amp")[0],
+            get("roi_ph")[0], get("filtered_frequencies"), _PM_OPTICAL["thickness"])
+        for key, want in zip(_PM_OPTICAL_KEYS, optical):
+            assert np.array_equal(got[f"{name}/{key}"], want.cpu().numpy(), equal_nan=True), \
+                (label, name, key)
+    return worst
+
+
+def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
+    """The ``pipeline_mesh`` phase: the incremental ``Pipeline`` and its
+    ``Publisher`` on one rank's block of the 200x200x1024 scan. One rank
+    over NCCL in this process, in lockstep with the single-device
+    ``Pipeline`` (every slot, series, the Apply and the dense extraction bit
+    for bit after every command); 2 (1x2) and 4 (2x2) spawned ranks over
+    gloo on the one card against the one-rank run (slots by checksum over
+    each rank's block, bit for bit; series at the multi-device tolerance;
+    the Apply within 1e-4 * max; the dense extraction's digest equal). Each
+    rank's launches per command, host ms, collectives and peak memory. The
+    spawned ranks ran in the multi_device phase's processes
+    (:func:`md_pm_rank`); ``work`` is that phase's temporary directory,
+    which this one reads and removes. Returns the phase's record."""
+    import torch
+    import torch.distributed as dist
+
+    from thz_image_explorer_tpu_torch.io.dotthz import finalize_scan, open_scan_arrays
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.parallel import mesh as pm
+    from thz_image_explorer_tpu_torch.parallel import open_arrays_sharded
+    from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
+
+    is_cuda = torch.device(device).type == "cuda"
+    tmp = work
+    npy = str(Path(tmp.name, "scan.npy"))
+    record = dict(shape=list(cube.shape), card=smi, filters=list(_PM_FILTERS), rois=4,
+                  pixel=list(_MD_PIXEL), clicks=_PM_CLICKS, scale=_PM_SCALE, tilt=list(_PM_TILT),
+                  apply="default DeconvolutionParams (25 bands, 500 iterations), synthetic PSF",
+                  dense_opacity_threshold=_VIEW_OPACITY_THRESHOLD,
+                  timing="host ms of each command and its publish, a synchronize on each "
+                         "side; by kind the largest rank's median of slider steps 2-5 and "
+                         "clicks 2-10")
+    worlds = {w: [pm.Mesh(pm.grid_shape(w), r) for r in range(w)] for w in (2, 4)}
+
+    # 1. one rank over NCCL (gloo off the card), in lockstep with the
+    # single-device Pipeline
+    t_one = time.perf_counter()
+    if is_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    whole, _ = finalize_scan(open_scan_arrays(t, cube, scan_metadata(0.5)), device)
+    backend = "nccl" if is_cuda else "gloo"
+    mesh = pm.init(device, backend=backend, init_method=f"file://{tmp.name}/store_pm1", rank=0,
+                   world_size=1)
+    mismatches, ref_ms, series, checksums = [], {}, {}, {}
+    try:
+        block, _, _ = open_arrays_sharded(t, np.load(npy, mmap_mode="r"), mesh,
+                                          metadata=scan_metadata(0.5), device=device)
+        ref = PmClient(Pipeline(device), whole, device)
+        one = PmClient(Pipeline(device, mesh=mesh), block, device)
+        script = {s[0]: s for s in pm_script(seed)}
+        rl_case = {}
+
+        def lockstep(step, host):
+            """The single device runs the same command after the mesh's,
+            outside its timing and counts; then every slot and series."""
+            ms, want = host_ms(lambda: pm_run(ref, script[step[0]]), device)
+            ref_ms[step[0]] = ms
+            for i, (a, b) in enumerate(zip(ref.p.slots, one.p.slots)):
+                mismatches.extend(f"{step[0]} slot {i} {f}" for f in _PM_SLOT_FIELDS
+                                  if not same_bits(getattr(a, f), getattr(b, f)))
+            mismatches.extend(f"{step[0]} {k}" for k in want
+                              if not np.array_equal(want[k], host[k], equal_nan=True))
+            series.update({f"{step[0]}/{k}": v for k, v in host.items()})
+            checksums[step[0]] = {w: [slot_checksums(one.p, lambda g, m=m: m.block(None, g))
+                                      for m in meshes] for w, meshes in worlds.items()}
+            if step[0] == "apply":
+                rl_case["inputs"] = dec.rl_inputs(one.p.slots[-2].data,
+                                                  one.p.filters[DEC]._plan_cache[1])
+            if step[0] == "apply_again":
+                rl_case["apply"] = one.p.output.data
+
+        record1, dense1 = pm_drive(one, device, seed, lockstep)
+        dense_ref = ref.dense()
+        for a, b in zip(dense_ref, dense1):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                mismatches.append("dense")
+        measure1 = pm_measure(one, device, "1 rank")
+    finally:
+        dist.destroy_process_group()
+    assert not mismatches, ("1 rank vs the single device", mismatches[:20])
+    pm_check_launches(record1, "1 rank")
+    apply1 = rl_case["apply"].cpu().numpy()
+    digest1 = dense_digest(dense1)
+    record["world1"] = dict(
+        backend=backend, mesh=[1, 1], bit_for_bit_with_single_device=True,
+        wall_s=time.perf_counter() - t_one,
+        ms=pm_summary(record1), single_device_ms=ref_ms,
+        launches={k: sum(c[k] for *_, c in record1) for k in record1[0][3]},
+        per_command=[(n, round(ms, 3), c) for n, _, ms, c in record1],
+        dense=dict(points=digest1[0], threshold=digest1[1]),
+        measure=measure1,
+        peak_bytes_both_pipelines=torch.cuda.max_memory_allocated() if is_cuda else None)
+    padded, px, py, n_iter = rl_case["inputs"]
+    del ref, one, whole, block, rl_case, dense1, dense_ref
+    if is_cuda:
+        torch.cuda.empty_cache()
+
+    # 2. 2 and 4 ranks sharing the card over gloo, against the one-rank run
+    apply_scale = float(np.nanmax(np.abs(apply1)))
+    kinds = {n: k for n, k, _ in pm_script(seed)}
+    applied = f"{len(Pipeline(device).chain) - 1}/data"
+    for world, meshes in worlds.items():
+        t_cmp = time.perf_counter()
+        ranks = rank_results(Path(tmp.name, f"world{world}", "pm"), world)
+        per_rank = []
+        for res, path in ranks:
+            r, label = res["rank"], f"pipeline_mesh {world} ranks, rank {res['rank']}"
+            pm_check_launches(res["record"], label)
+            # the Apply's own output is held to a tolerance below (the
+            # ranks' band subsets sum in another order)
+            bad = [f"{step}/{k}" for step, sums in res["checksums"].items()
+                   for k, v in sums.items() if checksums[step][world][r].get(k) != v
+                   and not (kinds[step] == "apply" and k == applied)]
+            assert not bad, (label, "slots differ from the one-rank run's block", bad[:20])
+            got = dict(np.load(path))
+            worst = pm_compare_series(got, series, label, device, kinds, apply_scale)
+            blk = got.pop("apply/data")
+            x0, y0 = (int(v) for v in got.pop("apply/origin"))
+            apply_err = float(np.nanmax(np.abs(blk - apply1[x0: x0 + blk.shape[0],
+                                                            y0: y0 + blk.shape[1]])))
+            assert apply_err <= _MD_APPLY_TOL * apply_scale, (label, apply_err, apply_scale)
+            assert tuple(res["dense"]) == digest1, (label, res["dense"], digest1)
+            # the RL kernel on this rank's bands (the gathered canvases are
+            # the same on every rank), in this process
+            bands = torch.as_tensor(dec.band_split(n_iter, world)[r], device=device)
+            sub = [v.index_select(0, bands).contiguous() for v in (padded, px, py)]
+            rl_err = check_rl(*sub, n_iter[bands.cpu().numpy()], label, "cluster")[0] \
+                if is_cuda else None
+            per_rank.append(dict(
+                rank=r, block=list(meshes[r].block(None, cube.shape[:2])), ms=res["summary"],
+                launches={k: sum(c[k] for *_, c in res["record"]) for k in res["record"][0][3]},
+                apply_launches=[c["rlsep_cluster"] for _, kind, _, c in res["record"]
+                                if kind == "apply"],
+                series_max_abs_diff=worst, apply_max_abs_diff=apply_err,
+                measure=res["measure"], rlsep_cluster_bands_max_abs_err=rl_err,
+                peak_bytes=res["peak_bytes"], wall_s=res["wall_s"]))
+            del got, blk
+        ms_kinds = per_rank[0]["ms"].keys()
+        record[f"world{world}"] = dict(
+            backend="gloo", mesh=list(pm.grid_shape(world)),
+            slots_bit_for_bit=True, dense_same_points=True,
+            ms_largest_rank={k: largest([p["ms"][k] for p in per_rank]) for k in ms_kinds},
+            compare_s=time.perf_counter() - t_cmp,
+            collective_share_largest_rank={
+                k: max(p["measure"][k]["collective_share"] for p in per_rank)
+                for k in ("slider", "click")},
+            peak_bytes_largest_rank=max(p["peak_bytes"] or 0 for p in per_rank),
+            ranks=per_rank)
     tmp.cleanup()
     return record
 
@@ -3036,7 +3611,7 @@ def main() -> int:
     # 9b. multiple devices: one rank over NCCL, 2 and 4 ranks sharing the
     # card over gloo (each rank's launch counts zeroed just before its path
     # and read just after), 4 ranks at 512x512x1024
-    multi = phase_multi_device(t, cube, t5, cube5, name, smi)
+    multi, md_work = phase_multi_device(t, cube, t5, cube5, name, smi, args.seed)
     emit(phase="multi_device", **multi)
     del cube5
     md_launches = {kernel: {"world1": multi["world1"]["launches"][kernel],
@@ -3044,6 +3619,18 @@ def main() -> int:
                                for w in (2, 4)}}
                    for kernel in ("specred", "rlsep_cluster", "envelope")}
     md_block = {f"world{w}": multi[f"world{w}"]["kernels_at_block"] for w in (2, 4)}
+
+    # 9c. the incremental Pipeline and its publish on a pixel-sharded cube:
+    # one rank over NCCL in lockstep with the single device, 2 and 4 ranks
+    # sharing the card over gloo, run in 9b's rank processes after their
+    # multi_device work (each command's launch counts zeroed just before it
+    # and read just after, in each rank's own process)
+    pipe = phase_pipeline_mesh(t, cube, name, smi, args.seed, md_work)
+    emit(phase="pipeline_mesh", **pipe)
+    pm_launches = {kernel: {"world1": pipe["world1"]["launches"][kernel],
+                            **{f"world{w}": [r["launches"][kernel] for r in pipe[f"world{w}"]["ranks"]]
+                               for w in (2, 4)}}
+                   for kernel in ("specred", "rlsep_cluster", "envelope")}
 
     # 10. the kernels line
     print(json.dumps({"kernels": [{
@@ -3078,6 +3665,7 @@ def main() -> int:
         "launches_shell": shell_launches["specred"],
         # per rank of the multi_device phase, and the block shapes' times
         "launches_multi_device": md_launches["specred"],
+        "launches_pipeline_mesh": pm_launches["specred"],
         "multi_device_block": {w: dict(n=v["n"], ms=v["specred_ms"], bound_ms=v["specred_bound_ms"])
                                for w, v in md_block.items()},
     }, {
@@ -3109,6 +3697,7 @@ def main() -> int:
         "launches_psf_tool": psf_launches["rlsep_cluster"],
         "launches_shell": shell_launches["rlsep_cluster"],
         "launches_multi_device": md_launches["rlsep_cluster"],
+        "launches_pipeline_mesh": pm_launches["rlsep_cluster"],
         "tool_psf": dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
                          ms=tool_rl_ms, plain_ms=tool_rl_plain_ms, bound_ms=tool_rl_bound,
                          bound_by=tool_rl_bound_by),
@@ -3159,6 +3748,7 @@ def main() -> int:
         "launches_tilt": tilt_launches["envelope"],
         "launches_shell": shell_launches["envelope"],
         "launches_multi_device": md_launches["envelope"],
+        "launches_pipeline_mesh": pm_launches["envelope"],
         "multi_device_block": {w: dict(n=v["n"], ms=v["envelope_ms"],
                                        bound_ms=v["envelope_bound_ms"])
                                for w, v in md_block.items()},

@@ -61,9 +61,9 @@ def _run(rank, world, store, scan, psf, outdir):
     from thz_image_explorer_tpu_torch.io.psf_npz import load_psf
     from thz_image_explorer_tpu_torch.ops import deconvolution as dec
     from thz_image_explorer_tpu_torch.ops import voxel
-    from thz_image_explorer_tpu_torch.parallel import lean_update, open_scan_sharded
+    from thz_image_explorer_tpu_torch.parallel import open_scan_sharded
     from thz_image_explorer_tpu_torch.parallel import mesh as pm
-    from thz_image_explorer_tpu_torch.parallel.step import StepConfig, StepParams
+    from thz_image_explorer_tpu_torch.parallel.step import StepConfig, StepParams, lean_update
 
     mesh = pm.init("cpu", init_method=f"file://{store}", rank=rank, world_size=world,
                    timeout_s=90.0)

@@ -123,6 +123,16 @@ def masked_pixel_mean(x: torch.Tensor, valid_wh) -> torch.Tensor:
     return torch.sum(x, dim=(0, 1)) / count
 
 
+def masked_pixel_sum(x: torch.Tensor, valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sum over the pixel axes (0, 1) of the pixels where the (X, Y) 0/1
+    ``valid`` is 1 (all of them for None): a block's part of
+    :func:`masked_pixel_mean`'s numerator, which a mesh's ranks join
+    before dividing by the global valid count."""
+    if valid is not None:
+        x = x * valid.reshape(*valid.shape, *([1] * (x.ndim - 2))).to(x.dtype)
+    return torch.sum(x, dim=(0, 1))
+
+
 def make_cube(
     time,
     data,

@@ -18,17 +18,29 @@ Semantics kept exactly:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from thz_image_explorer_tpu_torch.data import ScanCube, masked_pixel_mean
 from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
+from thz_image_explorer_tpu_torch.parallel.mesh import Mesh, all_sum
 
 #: pi and 2 pi as the f32 values the reference's f32 comparisons use
 #: (``jnp.pi`` against an f32 array compares with 3.14159274f)
 PI_F32 = float(np.float32(math.pi))
 TWO_PI_F32 = float(np.float32(2.0 * math.pi))
+#: cuFFT chooses its algorithm by the batch as well as the length, and two
+#: algorithms give a row different last bits (NVIDIA H100, CUDA 12.8, length
+#: 1024: batches of up to 1 152 rows against batches of 2 178 rows and more;
+#: length 128: up to 2 178 against 4 356 and more). A rank's block of a
+#: sharded cube is padded with zero rows to the whole grid's row count or to
+#: this many, whichever is fewer, so that it takes the whole cube's algorithm
+#: and gets its bits (for an even trace length: rows of an odd one lie at
+#: varying alignments, which cuFFT treats differently too). A whole cube is
+#: never padded.
+MIN_FFT_ROWS = 8192
 
 
 def wrap_adjust(d: torch.Tensor) -> torch.Tensor:
@@ -62,6 +74,38 @@ def unwrap(phase: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return finish_unwrap(phase_increments(phase, dim), dim)
 
 
+def _abs_angle(spec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(|z|, arg z)`` of a complex tensor, each element computed the same
+    way wherever it sits in the tensor. On the CPU an elementwise function
+    takes a vector path for most elements of a contiguous run and a scalar
+    one for its tail, and the two can differ in the last bit; the strided
+    real and imaginary views take the scalar path for every element, so a
+    block of a sharded cube gets the whole cube's values bit for bit. A
+    CUDA kernel computes every element alike."""
+    if spec.device.type != "cpu":
+        return torch.abs(spec), torch.angle(spec)
+    re, im = spec.real, spec.imag
+    return torch.hypot(re, im), torch.atan2(im, re)
+
+
+def batch_fft(fn, x: torch.Tensor, cube: ScanCube, **kw) -> torch.Tensor:
+    """``fn(x, dim=-1, **kw)`` (``torch.fft.rfft`` or ``irfft``) over the
+    rows of ``x`` (X, Y, n), the pixels of ``cube``. On a CUDA tensor of a
+    block of a sharded cube (``cube.grid`` set) the batch is padded with
+    zero rows to ``min(X' * Y', MIN_FFT_ROWS)`` for the whole grid's
+    ``(X', Y')``: at most the whole cube's own batch."""
+    rows = x.shape[0] * x.shape[1]
+    if x.device.type != "cuda" or cube.grid is None:
+        return fn(x, dim=-1, **kw)
+    want = min(cube.grid[0] * cube.grid[1], MIN_FFT_ROWS)
+    if rows >= want or rows == 0:
+        return fn(x, dim=-1, **kw)
+    flat = x.reshape(rows, x.shape[-1])
+    padded = torch.cat([flat, flat.new_zeros((want - rows, x.shape[-1]))])
+    out = fn(padded, dim=-1, **kw)[:rows]
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
 def forward_fft(cube: ScanCube, window_type: WindowType, window_low,
                 window_high) -> ScanCube:
     """Window + batched real FFT + amplitude / unwrapped phase over all
@@ -69,16 +113,18 @@ def forward_fft(cube: ScanCube, window_type: WindowType, window_low,
     (ps) only shape the adapted Blackman window."""
     w = window_array(cube.time, window_type, window_low, window_high)
     data = cube.data * w
-    spec = torch.fft.rfft(data, dim=-1)
+    spec = batch_fft(torch.fft.rfft, data, cube)
+    amplitudes, angles = _abs_angle(spec)
     return cube.replace(
         data=data,
         fft=spec,
-        amplitudes=torch.abs(spec),
-        phases=unwrap(torch.angle(spec)),
+        amplitudes=amplitudes,
+        phases=unwrap(angles),
     )
 
 
-def inverse_fft(cube: ScanCube, avg_in_fourier_space: bool = False) -> ScanCube:
+def inverse_fft(cube: ScanCube, avg_in_fourier_space: bool = False,
+                mesh: Optional[Mesh] = None) -> ScanCube:
     """Batched inverse FFT plus pixel-mean spectra (``ifft()``,
     ``math_tools.rs:418-571``, minus the ROI handling, which the publish
     does):
@@ -88,16 +134,27 @@ def inverse_fft(cube: ScanCube, avg_in_fourier_space: bool = False) -> ScanCube:
     * optionally the average trace rebuilt from the polar means
       (``math_tools.rs:442-470``);
     * per-pixel c2r with 1/N normalization (``math_tools.rs:545-569``).
+
+    With a ``mesh`` (``parallel.mesh``), ``cube`` is this rank's block: its
+    pixel sums over the global valid count are joined over the ranks in
+    one ``all_sum`` before the polar means are used, so every rank holds
+    the whole grid's means (a mesh of one rank gives the same values).
     """
     n_time = cube.time.shape[0]
     avg_fft = masked_pixel_mean(cube.fft, cube.valid_wh)
     avg_signal_fft = masked_pixel_mean(cube.amplitudes, cube.valid_wh)
     avg_phase_fft = masked_pixel_mean(cube.phases, cube.valid_wh)
+    if mesh is not None:
+        nf = avg_signal_fft.shape[0]
+        means = all_sum(torch.cat([torch.view_as_real(avg_fft).reshape(-1), avg_signal_fft,
+                                   avg_phase_fft]), mesh)
+        avg_fft = torch.view_as_complex(means[: 2 * nf].reshape(nf, 2))
+        avg_signal_fft, avg_phase_fft = means[2 * nf: 3 * nf], means[3 * nf:]
     avg_data = cube.avg_data
     if avg_in_fourier_space:
         avg_data = polar_irfft(avg_signal_fft, avg_phase_fft, n_time)
     return cube.replace(
-        data=torch.fft.irfft(cube.fft, n=n_time, dim=-1),
+        data=batch_fft(torch.fft.irfft, cube.fft, cube, n=n_time),
         avg_data=avg_data,
         avg_fft=avg_fft,
         avg_signal_fft=avg_signal_fft,

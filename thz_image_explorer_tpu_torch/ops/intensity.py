@@ -17,5 +17,10 @@ def intensity_image(data: torch.Tensor) -> torch.Tensor:
 def upscaled_intensity_image(data: torch.Tensor, scale: int) -> torch.Tensor:
     """Intensity image with each downscaled pixel replicated over its
     ``scale x scale`` block (``data_thread.rs:1244-1285``)."""
-    img = intensity_image(data)
+    return upscale_image(intensity_image(data), scale)
+
+
+def upscale_image(img: torch.Tensor, scale: int) -> torch.Tensor:
+    """Each pixel of an (X, Y) image replicated over a ``scale x scale``
+    block."""
     return img.repeat_interleave(scale, dim=0).repeat_interleave(scale, dim=1)

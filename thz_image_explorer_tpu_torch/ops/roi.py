@@ -66,15 +66,22 @@ def polygon_mask(polygon: list[tuple[int, int]], shape: tuple[int, int],
     return mask
 
 
+def masked_sum_stack(arr: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Batched ROI sums: ``(R, X, Y)`` masks x ``(X, Y, T)`` array ->
+    ``(R, T)``, one f32 matrix product (TF32 is off package-wide). Sums over
+    disjoint pixel blocks add up to the whole grid's: a rank of a mesh
+    passes its block and its slice of the masks, and the publish joins the
+    ranks' sums before dividing by the whole masks' counts."""
+    x, y, t = arr.shape
+    return masks.reshape(masks.shape[0], x * y).to(arr.dtype) @ arr.reshape(x * y, t)
+
+
 def masked_mean_stack(arr: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """Batched ROI means: ``(R, X, Y)`` masks x ``(X, Y, T)`` array ->
     ``(R, T)``; empty masks yield zeros (the reference's untouched zero
-    result, ``math_tools.rs:640-659``). One f32 matrix product (TF32 is
-    off package-wide)."""
-    x, y, t = arr.shape
-    m = masks.reshape(masks.shape[0], x * y).to(arr.dtype)
-    counts = m.sum(dim=1)
-    totals = m @ arr.reshape(x * y, t)
+    result, ``math_tools.rs:640-659``)."""
+    counts = masks.reshape(masks.shape[0], arr.shape[0] * arr.shape[1]).to(arr.dtype).sum(dim=1)
+    totals = masked_sum_stack(arr, masks)
     return torch.where(
         counts[:, None] > 0, totals / torch.clamp(counts, min=1.0)[:, None], 0.0
     )

@@ -78,15 +78,18 @@ def extension_steps(
 
 
 def pixel_shifts(width: int, height: int, valid_wh, dx: float, dy: float,
-                 tilt_x_deg: float, tilt_y_deg: float, num_steps: int) -> np.ndarray:
+                 tilt_x_deg: float, tilt_y_deg: float, num_steps: int,
+                 origin: tuple[int, int] = (0, 0)) -> np.ndarray:
     """(W, H) int64 insert offset of each pixel's trace in the extended
     axis (``tilt_compensation.rs:156-175``): ``max(num_steps + floor((x_off
     + y_off) / DT_PS), 0)``, offsets from the tilt centre at half the valid
-    width and height."""
+    width and height. ``origin`` is the grid position of pixel (0, 0) (a
+    block of a sharded cube): each pixel's value depends on its own grid
+    position only, so a block's shifts equal the whole grid's over it."""
     tsx = _F32(tilt_x_deg) * _DEG
     tsy = _F32(tilt_y_deg) * _DEG
-    i = np.arange(width, dtype=_F32)[:, None]
-    j = np.arange(height, dtype=_F32)[None, :]
+    i = np.arange(origin[0], origin[0] + width, dtype=_F32)[:, None]
+    j = np.arange(origin[1], origin[1] + height, dtype=_F32)[None, :]
     x_pre = ((i - _F32(valid_wh[0]) * _F32(0.5)) * _F32(dx)) * tsx
     y_pre = ((j - _F32(valid_wh[1]) * _F32(0.5)) * _F32(dy)) * tsy
     x_off = np.broadcast_to(x_pre * _INV_C, (width, height))
@@ -128,10 +131,10 @@ def geometry(cube: ScanCube, tilt_x_deg: float, tilt_y_deg: float,
     """The extension step count for ``cube``, or None when dx/dy are unknown
     (the reference's no-op, ``tilt_compensation.rs:111``). The tilt centre
     and the extension come from the valid region ``valid_wh`` (the cube's
-    own grid when None)."""
+    whole grid when None): the same count on every rank of a mesh."""
     if cube.dx is None or cube.dy is None:
         return None
-    vw, vh = valid_wh if valid_wh is not None else (cube.width, cube.height)
+    vw, vh = valid_wh if valid_wh is not None else cube.grid_wh
     return extension_steps(vw, vh, cube.dx, cube.dy, tilt_x_deg, tilt_y_deg)
 
 
@@ -139,19 +142,20 @@ def tilt_compensate(cube: ScanCube, tilt_x_deg: float, tilt_y_deg: float,
                     valid_wh=None, host_time: Optional[np.ndarray] = None) -> ScanCube:
     """Apply tilt compensation; returns ``cube`` itself when dx/dy are
     unknown. ``host_time`` is the host copy of ``cube.time`` (read from the
-    device when None)."""
+    device when None). A block of a sharded cube is shifted at its
+    ``origin`` in the grid, around the centre of the global valid region."""
     num_steps = geometry(cube, tilt_x_deg, tilt_y_deg, valid_wh)
     if num_steps is None:
         return cube
     if host_time is None:
         host_time = cube.time.cpu().numpy()
-    vwh = valid_wh if valid_wh is not None else (cube.width, cube.height)
+    vwh = valid_wh if valid_wh is not None else cube.grid_wh
     dev = cube.device
     n_time = cube.n_time
     new_time = extended_time(host_time, num_steps)
     insert = torch.as_tensor(
         pixel_shifts(cube.width, cube.height, vwh, cube.dx, cube.dy,
-                     tilt_x_deg, tilt_y_deg, num_steps),
+                     tilt_x_deg, tilt_y_deg, num_steps, cube.origin),
         device=dev,
     )
     win = adapted_blackman_window(cube.time, 0.0, 7.0)

@@ -84,6 +84,18 @@ class Mesh:
                              "rows or columns")
         return x0, x1, y0, y1
 
+    def owner(self, pixel, grid: tuple[int, int], multiple: int = 1) -> int:
+        """The rank whose :meth:`block` of ``grid`` holds the global
+        ``pixel`` (x, y); raises for a pixel outside the grid."""
+        x, y = int(pixel[0]), int(pixel[1])
+        if not (0 <= x < grid[0] and 0 <= y < grid[1]):
+            raise ValueError(f"pixel {(x, y)} outside a {grid[0]}x{grid[1]} grid")
+        for r in range(self.world):
+            x0, x1, y0, y1 = self.block(r, grid, multiple)
+            if x0 <= x < x1 and y0 <= y < y1:
+                return r
+        raise AssertionError("the blocks do not tile the grid")
+
 
 def _span(n: int, parts: int, k: int, multiple: int) -> tuple[int, int]:
     size = -(-(-(-n // parts)) // multiple) * multiple
@@ -144,6 +156,53 @@ def shard_cube(cube: ScanCube, mesh: Mesh, rank: Optional[int] = None,
         origin=(ox + x0, oy + y0), grid=grid)
 
 
+def check_rank_block(cube: ScanCube, mesh: Mesh) -> None:
+    """Raise ``ValueError`` unless ``cube`` is this rank's :meth:`Mesh.block`
+    of its grid (``origin`` and extent), as :func:`shard_cube` and the
+    sharded opens cut it at the default multiple. A whole cube
+    (``grid`` None) passes only on a mesh of one rank."""
+    if cube.grid is None and mesh.world > 1:
+        raise ValueError(f"a whole cube on a mesh of {mesh.world} ranks: give this rank's block "
+                         "(parallel.shard_cube, open_scan_sharded or open_arrays_sharded)")
+    x0, x1, y0, y1 = mesh.block(None, cube.grid_wh)
+    have = (cube.origin[0], cube.origin[0] + cube.width, cube.origin[1],
+            cube.origin[1] + cube.height)
+    if have != (x0, x1, y0, y1):
+        raise ValueError(f"the block [{have[0]}, {have[1]}) x [{have[2]}, {have[3]}) of a "
+                         f"{cube.grid_wh[0]}x{cube.grid_wh[1]} grid is not rank {mesh.rank}'s "
+                         f"[{x0}, {x1}) x [{y0}, {y1})")
+
+
+def check_scale_block(cube: ScanCube, scale: int) -> None:
+    """A block downscaled on its own (``parallel.step``) must not let a
+    downscaled pixel straddle two ranks' blocks."""
+    if scale <= 1 or cube.grid is None:
+        return
+    for o, n, g in ((cube.origin[0], cube.width, cube.grid[0]),
+                    (cube.origin[1], cube.height, cube.grid[1])):
+        if o % scale or (o + n < g and n % scale):
+            raise ValueError(f"a block at {cube.origin} of {cube.width}x{cube.height} is not cut "
+                             f"on multiples of the scale {scale}: shard with multiple={scale}")
+
+
+def block_slice(arr: torch.Tensor, cube: ScanCube) -> torch.Tensor:
+    """The (..., X, Y) whole-grid array's part over the block's pixels."""
+    x0, y0 = cube.origin
+    return arr[..., x0: x0 + cube.width, y0: y0 + cube.height]
+
+
+def valid_mask(cube: ScanCube) -> Optional[torch.Tensor]:
+    """(bx, by) 0/1 of the block's pixels inside the valid region; None
+    where all of them are."""
+    x0, y0 = cube.origin
+    vw, vh = cube.valid_wh
+    if x0 + cube.width <= vw and y0 + cube.height <= vh:
+        return None
+    xs = torch.arange(x0, x0 + cube.width, device=cube.device) < vw
+    ys = torch.arange(y0, y0 + cube.height, device=cube.device) < vh
+    return (xs[:, None] & ys[None, :]).to(torch.float32)
+
+
 def all_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The sum of ``t`` over the mesh's ranks, on every rank (a new
     tensor; ``t`` itself for ``mesh`` None)."""
@@ -151,6 +210,20 @@ def all_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
         return t
     out = t.clone().contiguous()
     _all_reduce(out, mesh)
+    return out
+
+
+def all_sum_parts(parts: list[torch.Tensor], mesh: Optional[Mesh]) -> list[torch.Tensor]:
+    """The sum over the mesh's ranks of each tensor of ``parts`` (one
+    dtype), joined in ONE collective of their flattened concatenation;
+    ``parts`` themselves for ``mesh`` None, with no copy."""
+    if mesh is None:
+        return list(parts)
+    flat = all_sum(torch.cat([p.reshape(-1) for p in parts]), mesh)
+    out, pos = [], 0
+    for p in parts:
+        out.append(flat[pos: pos + p.numel()].reshape(p.shape))
+        pos += p.numel()
     return out
 
 
@@ -165,11 +238,20 @@ def grid_gather(local: torch.Tensor, mesh: Optional[Mesh], grid: tuple[int, int]
         return local
     if origin is None:
         x0, _, y0, _ = mesh.block(None, grid)
-    else:
-        x0, y0 = origin
+        origin = (x0, y0)
+    full = grid_place(local, grid, origin)
+    _all_reduce(full, mesh)
+    return full
+
+
+def grid_place(local: torch.Tensor, grid: tuple[int, int],
+               origin: tuple[int, int]) -> torch.Tensor:
+    """The ``(bx, by, ...)`` block ``local`` at ``origin`` of a zero-filled
+    ``(X, Y, ...)`` whole grid: one rank's part of :func:`grid_gather`, for a
+    caller that joins it with other sums in one ``all_sum``."""
+    x0, y0 = origin
     full = local.new_zeros((grid[0], grid[1], *local.shape[2:]))
     full[x0: x0 + local.shape[0], y0: y0 + local.shape[1]] = local
-    _all_reduce(full, mesh)
     return full
 
 

@@ -34,12 +34,18 @@ import torch
 from thz_image_explorer_tpu_torch.assets.water_lines import WATER_LINES_THZ
 from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.ops import bandpass as bp
-from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft, polar_irfft, unwrap
+from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft, unwrap
 from thz_image_explorer_tpu_torch.ops.intensity import intensity_image
 from thz_image_explorer_tpu_torch.ops.scaling import scale_cube
 from thz_image_explorer_tpu_torch.ops.specred import lean_spectral_finish, lean_spectral_sums
 from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
-from thz_image_explorer_tpu_torch.parallel.mesh import Mesh, all_sum
+from thz_image_explorer_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_sum,
+    block_slice,
+    check_scale_block,
+    valid_mask,
+)
 
 
 class StepConfig(NamedTuple):
@@ -76,21 +82,10 @@ class StepParams:
         default_factory=lambda: np.asarray(WATER_LINES_THZ, np.float32))
 
 
-def _check_block(cube: ScanCube, scale: int) -> None:
-    """A downscale must not straddle two ranks' blocks."""
-    if scale <= 1 or cube.grid is None:
-        return
-    for o, n, g in ((cube.origin[0], cube.width, cube.grid[0]),
-                    (cube.origin[1], cube.height, cube.grid[1])):
-        if o % scale or (o + n < g and n % scale):
-            raise ValueError(f"a block at {cube.origin} of {cube.width}x{cube.height} is not cut "
-                             f"on multiples of the scale {scale}: shard with multiple={scale}")
-
-
 def _spectrum(cube: ScanCube, params: StepParams, cfg: StepConfig) -> tuple[ScanCube, torch.Tensor]:
     """Scale, TD band-pass, window: ``(cube, window)`` with the windowed
     traces not yet multiplied in."""
-    _check_block(cube, cfg.scale)
+    check_scale_block(cube, cfg.scale)
     c = scale_cube(cube, cfg.scale, valid_wh=cube.valid_wh)
     if cfg.td_before_active:
         c = c.replace(data=bp.td_bandpass(c.data, c.time, params.td_before_low,
@@ -138,34 +133,9 @@ def interactive_update(cube: ScanCube, params: StepParams, cfg: StepConfig,
                                    params.notch_width, params.notch_depth)
         c = c.replace(fft=fft, amplitudes=amps)
     # the block's sums over the global valid count, joined over the ranks
-    c = inverse_fft(c, False)
-    nf = c.n_freq
-    means = all_sum(torch.cat([torch.view_as_real(c.avg_fft).reshape(-1), c.avg_signal_fft,
-                               c.avg_phase_fft]), mesh)
-    c = c.replace(avg_fft=torch.view_as_complex(means[: 2 * nf].reshape(nf, 2)),
-                  avg_signal_fft=means[2 * nf: 3 * nf], avg_phase_fft=means[3 * nf:])
-    if cfg.avg_in_fourier_space:
-        c = c.replace(avg_data=polar_irfft(c.avg_signal_fft, c.avg_phase_fft, c.n_time))
+    c = inverse_fft(c, cfg.avg_in_fourier_space, mesh)
     c = c.replace(data=_finish_data(c.data, c.time, params, cfg))
     return c, intensity_image(c.data)
-
-
-def _block_slice(arr: torch.Tensor, cube: ScanCube) -> torch.Tensor:
-    """The (..., X, Y) array's part over the block's pixels."""
-    x0, y0 = cube.origin
-    return arr[..., x0: x0 + cube.width, y0: y0 + cube.height]
-
-
-def _valid(cube: ScanCube) -> Optional[torch.Tensor]:
-    """(bx, by) 0/1 of the block's pixels inside the valid region; None
-    where all of them are."""
-    x0, y0 = cube.origin
-    vw, vh = cube.valid_wh
-    if x0 + cube.width <= vw and y0 + cube.height <= vh:
-        return None
-    xs = torch.arange(x0, x0 + cube.width, device=cube.device) < vw
-    ys = torch.arange(y0, y0 + cube.height, device=cube.device) < vh
-    return (xs[:, None] & ys[None, :]).to(torch.float32)
 
 
 def lean_update(cube: ScanCube, params: StepParams, cfg: StepConfig, masks: torch.Tensor,
@@ -185,9 +155,9 @@ def lean_update(cube: ScanCube, params: StepParams, cfg: StepConfig, masks: torc
     wvec = _fd_weights(c.freq, params, cfg)
     data = _finish_data(torch.fft.irfft(spec * wvec, n=c.n_time, dim=-1), c.time, params, cfg)
 
-    block_masks = _block_slice(masks, c).to(torch.float32).contiguous()
+    block_masks = block_slice(masks, c).to(torch.float32).contiguous()
     r, t, nf = masks.shape[0], c.n_time, c.n_freq
-    sums = lean_spectral_sums(spec, block_masks, _valid(c), with_complex=True)
+    sums = lean_spectral_sums(spec, block_masks, valid_mask(c), with_complex=True)
     # the selected pixel's rows: its owner writes them, the others zeros
     gx, gy = c.grid_wh
     px = min(max(int(pix[0]), 0), gx - 1)

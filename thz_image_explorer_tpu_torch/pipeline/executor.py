@@ -24,6 +24,19 @@ Contracts kept:
   run is forced (Apply, Calculate All). A suppressed deconvolution passes
   its input through and keeps its last ms.
 
+On a mesh (``Pipeline(mesh=)``, ``parallel.mesh``) the pipeline holds one
+rank's block of a pixel-sharded cube (``parallel.shard_cube``,
+``open_scan_sharded`` or ``open_arrays_sharded``) and every stage runs on
+it: the per-pixel stages as they are, the downscale and the iFFT's pixel
+means with their collectives, tilt at the block's origin, the
+deconvolution as ``deconvolve_cube``'s sharded form. Every slot is the
+mesh's block of its grid. Each rank runs the same commands in the same
+order, so every rank enters the same collectives; a mesh of one rank gives
+the single-device values bit for bit. ``current_image`` is the whole image
+on every rank; ``raw_fd_view``, ``spectral_source`` and ``timings_ms`` are
+the rank's own. The JAX package reaches the same through XLA's SPMD
+partitioner on a cube placed by its ``parallel.mesh.shard_cube``.
+
 The JAX package's fused/lean/click programs, compile cache and async
 probes were TPU workarounds and are not ported.
 """
@@ -40,12 +53,10 @@ import torch
 from thz_image_explorer_tpu_torch import kernels
 from thz_image_explorer_tpu_torch.data import ScanCube, frequency_axis, resolve_device
 from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft
-from thz_image_explorer_tpu_torch.ops.intensity import (
-    intensity_image,
-    upscaled_intensity_image,
-)
+from thz_image_explorer_tpu_torch.ops.intensity import intensity_image, upscale_image
 from thz_image_explorer_tpu_torch.ops.scaling import scale_cube
 from thz_image_explorer_tpu_torch.ops.windows import WindowType
+from thz_image_explorer_tpu_torch.parallel.mesh import Mesh, check_rank_block, grid_gather
 from thz_image_explorer_tpu_torch.pipeline.stage import (
     FilterStage,
     StageContext,
@@ -72,12 +83,15 @@ class PipelineConfig:
 
 class Pipeline:
     """Ordered stage chain with dirty-index incremental recompute on one
-    device. ``run_epoch`` changes with every chain run, so consumers can
-    cache what they derive from the slots."""
+    device, over a whole cube or (with ``mesh``) one rank's block of a
+    pixel-sharded cube. ``run_epoch`` changes with every chain run, so
+    consumers can cache what they derive from the slots."""
 
     def __init__(self, device="cuda",
-                 filters: Optional[dict[str, FilterStage]] = None):
+                 filters: Optional[dict[str, FilterStage]] = None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.filters: dict[str, FilterStage] = (
             filters if filters is not None else instantiate_filters()
         )
@@ -140,16 +154,21 @@ class Pipeline:
     # ------------------------------------------------------------------
     def set_input(self, cube: ScanCube, *, reset_filters: bool = True):
         """Load a new scan: fill slot 0, reset filters, run the chain
-        (``data_thread.rs:717-720`` + ``reset_filters`` at ``:1027-1060``)."""
+        (``data_thread.rs:717-720`` + ``reset_filters`` at ``:1027-1060``).
+        On a mesh ``cube`` is this rank's block; a block that is not this
+        rank's, and a whole cube on a mesh of several ranks, raise
+        ``ValueError``."""
         if cube.device != self.device:
             raise ValueError(f"cube on {cube.device}, pipeline on {self.device}")
+        if self.mesh is not None:
+            check_rank_block(cube, self.mesh)
         self.slots = [cube] + [None] * (len(self.chain) - 1)
         time = cube.time.cpu().numpy()
         self._host_time = {0: time}
         self._fd_weights = {}
         self.valid_wh0 = tuple(cube.valid_wh)
         if reset_filters:
-            shape = (cube.width, cube.height, cube.n_time)
+            shape = (*cube.grid_wh, cube.n_time)
             for f in self.filters.values():
                 f.reset(time, shape)
         self.run_from(1)
@@ -191,12 +210,12 @@ class Pipeline:
                    run_deconvolution: bool) -> ScanCube:
         cfg = self.config
         if name == "scaling":
-            return scale_cube(inp, cfg.scale_factor, valid_wh=self.valid_for(inp))
+            return scale_cube(inp, cfg.scale_factor, valid_wh=self.valid_for(inp), mesh=self.mesh)
         if name == "fft":
             return forward_fft(inp, cfg.fft_window_type, cfg.fft_window[0],
                                cfg.fft_window[1])
         if name == "ifft":
-            return inverse_fft(inp, cfg.avg_in_fourier_space)
+            return inverse_fft(inp, cfg.avg_in_fourier_space, self.mesh)
         stage = self.filters[name]
         in_fd = self.fft_index < i < self.ifft_index
         if not stage.active or (stage.is_deconvolution and not run_deconvolution):
@@ -206,6 +225,7 @@ class Pipeline:
         out = stage.apply(inp, StageContext(
             progress=self._progress_setter(name), cancelled=self.cancelled,
             psf=self.psf, valid_wh=self.valid_for(inp), time=self._host_time[i - 1],
+            mesh=self.mesh,
         ))
         if in_fd:
             weight = getattr(stage, "fd_weight_vector", None)
@@ -311,14 +331,16 @@ class Pipeline:
     def current_image(self) -> Optional[np.ndarray]:
         """Intensity image of the final stage, block-upscaled to the
         original grid when downscaled (``data_thread.rs:1242-1308``) and
-        cropped to slot 0's valid region."""
+        cropped to slot 0's valid region. On a mesh, the whole image on
+        every rank: the blocks' images joined by one ``grid_gather``."""
         out = self.output
         if out is None:
             return None
+        img = intensity_image(out.data)
+        if self.mesh is not None:
+            img = grid_gather(img, self.mesh, out.grid_wh, out.origin)
         if out.scaling > 1:
-            img = upscaled_intensity_image(out.data, out.scaling)
-        else:
-            img = intensity_image(out.data)
+            img = upscale_image(img, out.scaling)
         img = img.cpu().numpy()
         if self.valid_wh0 is not None:
             img = img[: self.valid_wh0[0], : self.valid_wh0[1]]

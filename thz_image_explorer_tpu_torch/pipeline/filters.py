@@ -20,6 +20,7 @@ from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.ops import bandpass as bp
 from thz_image_explorer_tpu_torch.ops import deconvolution as dec
 from thz_image_explorer_tpu_torch.ops import tilt
+from thz_image_explorer_tpu_torch.parallel.mesh import any_rank
 from thz_image_explorer_tpu_torch.pipeline.stage import (
     FilterConfig,
     FilterDomain,
@@ -195,7 +196,9 @@ class Deconvolution(FilterStage):
 
     The port never pads the pixel grid, so the stage deconvolves the whole
     cube; the JAX stage's crop to the valid region and re-insert
-    (``_crop2`` / ``_insert2``) have no counterpart here."""
+    (``_crop2`` / ``_insert2``) have no counterpart here. On a mesh the
+    stage plans for the whole grid and runs ``deconvolve_cube``'s sharded
+    form on the rank's block."""
 
     is_deconvolution = True
 
@@ -219,34 +222,53 @@ class Deconvolution(FilterStage):
     def apply(self, cube: ScanCube, context: StageContext) -> ScanCube:
         context.progress(0.0)
         try:
-            if cube.dx is None or cube.dy is None:
-                log.error("No spatial resolution (dx/dy); skipping deconvolution.")
+            skip, geometry = self._skip_reason(cube, context), None
+            if skip is None:
+                geometry = self._geometry(cube, context)
+                if geometry is None:
+                    skip = "Deconvolution preconditions not met; skipping."
+            # every rank of a mesh takes the same branch, or one would wait
+            # in a collective the others never enter: one 4-byte all_reduce
+            if context.mesh is not None:
+                if any_rank(skip is not None, context.mesh, cube.device) and skip is None:
+                    skip = "Another rank skips the deconvolution; skipping."
+            if skip is not None:
+                log.error(skip)
                 return cube
-            psf = context.psf
-            if psf is None or not psf.is_loaded:
-                log.error("No PSF loaded; skipping deconvolution.")
-                return cube
-            time = context.time if context.time is not None else cube.time.cpu().numpy()
-            # keyed on the PSF's content, not its id(): a new PSF allocated
-            # at a freed one's address must not hit a stale plan
-            key = (
-                dataclasses.astuple(self.params), psf.fingerprint(), time.shape,
-                float(time[0]), float(time[-1]), (cube.width, cube.height),
-                cube.dx, cube.dy,
-            )
-            if self._plan_cache is None or self._plan_cache[0] != key:
-                self._plan_cache = (key, dec.plan_bands(
-                    self.params, psf, time, (cube.width, cube.height), cube.dx, cube.dy,
-                ))
-            geometry = self._plan_cache[1]
-            if geometry is None:
-                log.warning("Deconvolution preconditions not met; skipping.")
-                return cube
+            kw = {} if context.mesh is None else dict(
+                mesh=context.mesh, origin=cube.origin, grid=cube.grid_wh)
             out = dec.deconvolve_cube(
                 cube.data, geometry, progress=context.progress, cancelled=context.cancelled,
+                **kw,
             )
             if out is None:  # cancelled
                 return cube
             return cube.replace(data=out)
         finally:
             context.progress(None)
+
+    @staticmethod
+    def _skip_reason(cube: ScanCube, context: StageContext):
+        if cube.dx is None or cube.dy is None:
+            return "No spatial resolution (dx/dy); skipping deconvolution."
+        psf = context.psf
+        if psf is None or not psf.is_loaded:
+            return "No PSF loaded; skipping deconvolution."
+        return None
+
+    def _geometry(self, cube: ScanCube, context: StageContext):
+        """The band plan for the whole pixel grid (a rank's block of a
+        sharded cube is deconvolved as part of it), cached on its inputs."""
+        psf = context.psf
+        time = context.time if context.time is not None else cube.time.cpu().numpy()
+        # keyed on the PSF's content, not its id(): a new PSF allocated
+        # at a freed one's address must not hit a stale plan
+        key = (
+            dataclasses.astuple(self.params), psf.fingerprint(), time.shape,
+            float(time[0]), float(time[-1]), cube.grid_wh, cube.dx, cube.dy,
+        )
+        if self._plan_cache is None or self._plan_cache[0] != key:
+            self._plan_cache = (key, dec.plan_bands(
+                self.params, psf, time, cube.grid_wh, cube.dx, cube.dy,
+            ))
+        return self._plan_cache[1]

@@ -14,6 +14,19 @@ JAX ``_publish_program``. It has two parts:
   recomputes alone: gathers of the selected pixel from the cached slots
   and the (F,)-sized optical-property math. No chain recompute and no
   kernel launch.
+
+The same code serves a single device and a mesh (a pipeline built with
+``mesh=``, ``parallel.mesh``), where each rank publishes from its blocks
+and gets the whole series: the masks stay ``(R, X', Y')`` on the whole
+output grid and each rank reduces its slice; the reductions make one
+``all_sum`` of every cross-pixel sum (the specred sums, the ROI and mean
+time traces) and of the image (each rank's block placed in a zero-filled
+whole grid, as ``grid_gather`` does), and divide by the whole grid's counts
+after the join. The selection is written by the rank that holds the pixel
+in each slot, zeros elsewhere, and rides in the same ``all_sum``; a click
+makes one ``all_sum`` of the selection alone and nothing else. On a single
+device the sums are used as they are, with no copy and no collective
+(``parallel.mesh.all_sum_parts``).
 """
 
 from __future__ import annotations
@@ -23,15 +36,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from thz_image_explorer_tpu_torch.data import ScanCube, masked_pixel_mean
+from thz_image_explorer_tpu_torch.data import ScanCube, masked_pixel_sum
 from thz_image_explorer_tpu_torch.ops.fourier import polar_irfft
-from thz_image_explorer_tpu_torch.ops.intensity import (
-    intensity_image,
-    upscaled_intensity_image,
-)
+from thz_image_explorer_tpu_torch.ops.intensity import intensity_image, upscale_image
 from thz_image_explorer_tpu_torch.ops.optical import calculate_optical_properties
-from thz_image_explorer_tpu_torch.ops.roi import masked_mean_stack
-from thz_image_explorer_tpu_torch.ops.specred import lean_spectral_outputs
+from thz_image_explorer_tpu_torch.ops.roi import masked_sum_stack
+from thz_image_explorer_tpu_torch.ops.specred import lean_spectral_finish, lean_spectral_sums
+from thz_image_explorer_tpu_torch.parallel.mesh import (
+    all_sum_parts,
+    block_slice,
+    grid_place,
+    valid_mask,
+)
 
 
 def _to_host(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
@@ -46,26 +62,46 @@ def _to_host(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return out
 
 
-def reduce_slots(pipeline, masks: torch.Tensor) -> dict[str, torch.Tensor]:
+def reduce_slots(pipeline, masks: torch.Tensor, extra: list[torch.Tensor] = ()):
     """The cross-pixel part of a publish: spectral means (one kernel pass
     over the raw spectrum, FD weights factored out), ROI/mean time traces,
-    intensity image. ``masks``: (R, X, Y) f32 ROI stack on the final grid."""
+    intensity image. ``masks``: (R, X, Y) f32 ROI stack on the final slot's
+    whole grid; ``extra``: f32 tensors of this rank's part of other sums
+    (the selection). Returns ``(reductions, extra joined)``.
+
+    The slots' pixel sums over their slice of the masks and the image
+    placed in a zero-filled whole grid are joined with ``extra`` in ONE
+    ``all_sum`` (none on a single device); the divisions by the whole
+    grid's counts come after it, so every rank of a mesh gets the single
+    device's values."""
     final = pipeline.output
     spec_slot, wvec = pipeline.spectral_source()
-    sr = lean_spectral_outputs(spec_slot.fft, wvec, masks, final.valid_wh)
-    if pipeline.config.avg_in_fourier_space:
+    block_masks = block_slice(masks, final).to(torch.float32).contiguous()
+    valid = valid_mask(final)
+    r, t = masks.shape[0], final.n_time
+    amp_s, inc_s, _, _ = lean_spectral_sums(spec_slot.fft, block_masks, valid)
+    fourier = pipeline.config.avg_in_fourier_space
+    parts = [amp_s, inc_s, grid_place(intensity_image(final.data), final.grid_wh, final.origin)]
+    if not fourier:
+        parts += [masked_sum_stack(final.data, block_masks), masked_pixel_sum(final.data, valid)]
+    joined = all_sum_parts(parts + list(extra), pipeline.mesh)
+    amp_s, inc_s, image = joined[:3]
+    counts = masks.to(torch.float32).sum(dim=(1, 2))
+    vcnt = max(int(final.valid_wh[0]) * int(final.valid_wh[1]), 1)
+    sr = lean_spectral_finish((amp_s, inc_s, None, None), wvec, counts, vcnt)
+    if fourier:
         # ROI traces from polar means (math_tools.rs:496-529); with no ROI
         # the batch is empty, which the FFT libraries refuse
-        roi_trace = (polar_irfft(sr["roi_amp"], sr["roi_ph"], final.n_time)
-                     if masks.shape[0] else sr["roi_amp"].new_zeros((0, final.n_time)))
+        roi_trace = (polar_irfft(sr["roi_amp"], sr["roi_ph"], t)
+                     if r else sr["roi_amp"].new_zeros((0, t)))
         avg_signal = final.avg_data
     else:
-        roi_trace = masked_mean_stack(final.data, masks)
-        avg_signal = masked_pixel_mean(final.data, final.valid_wh)
+        roi_sum, data_sum = joined[3:5]
+        roi_trace = torch.where(counts[:, None] > 0,
+                                roi_sum / torch.clamp(counts, min=1.0)[:, None], 0.0)
+        avg_signal = data_sum / vcnt
     if final.scaling > 1:
-        image = upscaled_intensity_image(final.data, final.scaling)
-    else:
-        image = intensity_image(final.data)
+        image = upscale_image(image, final.scaling)
     return dict(
         avg_signal=avg_signal,
         avg_signal_fft=sr["avg_amp"],
@@ -74,13 +110,40 @@ def reduce_slots(pipeline, masks: torch.Tensor) -> dict[str, torch.Tensor]:
         roi_ph=sr["roi_ph"],
         roi_trace=roi_trace,
         image=image,
-    )
+    ), joined[len(parts):]
 
 
 def _pixel(cube: ScanCube, pixel) -> tuple[int, int]:
+    """The selected pixel (native resolution) on ``cube``'s grid, clamped
+    to the grid."""
     px, py = pixel
-    return (min(px // cube.scaling, cube.width - 1),
-            min(py // cube.scaling, cube.height - 1))
+    gx, gy = cube.grid_wh
+    return (min(max(px // cube.scaling, 0), gx - 1),
+            min(max(py // cube.scaling, 0), gy - 1))
+
+
+#: the selection's rows: (slot, field, published key)
+_SELECTION = (("raw", "data", "signal"), ("raw_fd", "amplitudes", "signal_fft"),
+              ("raw_fd", "phases", "phase_fft"), ("final", "data", "filtered_signal"),
+              ("final", "amplitudes", "filtered_signal_fft"),
+              ("final", "phases", "filtered_phase_fft"))
+
+
+def _selection(slots: dict[str, ScanCube], pixel, mesh) -> dict[str, torch.Tensor]:
+    """This rank's part of the selected pixel's six rows: each row as its
+    owner (``Mesh.owner``: every slot is the mesh's block of its grid; this
+    process on a single device) has it, zeros on the other ranks, so that a
+    sum over the ranks is an exact copy."""
+    rows = {}
+    for slot, field, key in _SELECTION:
+        cube = slots[slot]
+        gx, gy = _pixel(cube, pixel)
+        t = getattr(cube, field)
+        if mesh is None or mesh.owner((gx, gy), cube.grid_wh) == mesh.rank:
+            rows[key] = t[gx - cube.origin[0], gy - cube.origin[1]]
+        else:
+            rows[key] = t.new_zeros(t.shape[2])
+    return rows
 
 
 class Publisher:
@@ -104,9 +167,15 @@ class Publisher:
         loaded pulse), ``samp_mode`` ("roi", "pixel" or "pseudo"),
         ``samp_idx``, ``samp_pseudo`` and ``thickness`` (m)."""
         raw, raw_fd, final = pipeline.input, pipeline.raw_fd_view(), pipeline.output
+        mesh = pipeline.mesh
+        rows = _selection(dict(raw=raw, raw_fd=raw_fd, final=final), pixel, mesh)
+        # on a mesh every rank runs the same commands, so the run epoch and
+        # the ROI key are equal on every rank and all ranks take (or skip)
+        # the reductions' collective together; the selection rides in it,
+        # or makes the one collective of a click
         key = (pipeline.run_epoch, roi_key)
         if key != self._key:
-            self._reduced = reduce_slots(pipeline, masks)
+            self._reduced, joined = reduce_slots(pipeline, masks, list(rows.values()))
             self._reduced_host = _to_host(dict(
                 self._reduced,
                 time=raw.time,
@@ -115,19 +184,10 @@ class Publisher:
                 filtered_frequencies=final.freq,
             ))
             self._key = key
+        else:
+            joined = all_sum_parts(list(rows.values()), mesh)
         red = self._reduced
-
-        rx, ry = _pixel(raw, pixel)
-        fx, fy = _pixel(raw_fd, pixel)
-        gx, gy = _pixel(final, pixel)
-        sel = dict(
-            signal=raw.data[rx, ry],
-            signal_fft=raw_fd.amplitudes[fx, fy],
-            phase_fft=raw_fd.phases[fx, fy],
-            filtered_signal=final.data[gx, gy],
-            filtered_signal_fft=final.amplitudes[gx, gy],
-            filtered_phase_fft=final.phases[gx, gy],
-        )
+        sel = dict(zip(rows, joined))
         # optical properties (data_thread.rs:1489-1559)
         if optical is not None:
             def pick(side):

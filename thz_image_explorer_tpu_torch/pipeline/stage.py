@@ -105,14 +105,16 @@ class StageContext:
     """Per-run services handed to stages: progress reporting (a fraction,
     None when done), cooperative cancellation, the PSF the deconvolution
     uses (the reference routes it through ``gui_settings.psf``), the
-    valid (width, height) of the stage's input and the host copy of its
-    time axis."""
+    valid (width, height) of the stage's input, the host copy of its
+    time axis, and the mesh (``parallel.mesh.Mesh``) whose rank's block the
+    stage runs on (None: a whole cube on one device)."""
 
     progress: Callable[[Optional[float]], None] = lambda _f: None
     cancelled: Callable[[], bool] = lambda: False
     psf: Optional[object] = None
     valid_wh: Optional[tuple[int, int]] = None
     time: Optional[np.ndarray] = None
+    mesh: Optional[object] = None
 
 
 _REGISTRY: dict[str, type] = {}
