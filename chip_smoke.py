@@ -34,12 +34,16 @@ multiple devices (``multi_device``: the pixel-grid mesh of ``parallel/``,
 its sharded update, Apply and live view on each rank's block, one rank over
 NCCL in this process against the single-device calls, 2 and 4 spawned ranks
 sharing the card over gloo against the one-rank results, 4 ranks at
-512x512x1024); and the incremental ``Pipeline`` with its publish on each
-rank's block (``pipeline_mesh``: open, slider steps, clicks, a downscale by
-3, tilt, the Apply and a dense 3-D extraction; one rank over NCCL in
-lockstep with the single-device ``Pipeline``, bit for bit, and 2 and 4
-ranks over gloo against it, run by the multi-device phase's rank
-processes after their own work). Each of the tilt, PSF tool, open_ref,
+512x512x1024, and a sharded step downscaled by 3 against the single
+device); and the incremental ``Pipeline`` with its publish on each rank's
+block (``pipeline_mesh``: open, slider steps, clicks, a downscale by 3,
+tilt, the Apply and a dense 3-D extraction, then the same at an odd trace
+length, 1023; one rank over NCCL in lockstep with the single-device
+``Pipeline``, bit for bit, and 2 and 4 ranks over gloo against it, run by
+the multi-device phase's rank processes after their own work). The main
+path also clicks with a stage overriding the ``show_data`` hook, and times
+the ROI rasterizer (``csrc/roi.c``, host C) beside its plain version at
+200x200 and 512x512. Each of the tilt, PSF tool, open_ref,
 shell, multi-device and pipeline_mesh paths is driven with every kernel's
 launch count set to 0 just before it and read just after (in each rank's
 own process). Each
@@ -565,6 +569,115 @@ def check_published(ex, width, height, n_time):
                      "avg_data", "avg_fft", "avg_signal_fft", "avg_phase_fft"):
             assert getattr(slot, name).device.type == "cuda", (i, name)
     assert ex.device.type == "cuda" and torch.cuda.is_available()
+
+
+def show_data_probe():
+    """An inactive filter stage whose ``show_data`` records what a click
+    hands it (an extension's preview hook; no built-in stage has one)."""
+    from thz_image_explorer_tpu_torch.pipeline.stage import FilterConfig, FilterDomain, FilterStage
+
+    class ShowDataProbe(FilterStage):
+        uuid = "show_data_probe"
+
+        def __init__(self):
+            self.active, self.seen = False, []
+
+        def config(self):
+            return FilterConfig("Show-data probe", "records its show_data calls",
+                                FilterDomain.TIME_AFTER_FFT)
+
+        def apply(self, cube, context):
+            return cube
+
+        def show_data(self, cube, pixel):
+            self.seen.append((cube, pixel))
+
+    return ShowDataProbe()
+
+
+def drive_show_data(ex, width, height, rng, n_clicks=10):
+    """Clicks without and then with a stage overriding ``show_data`` (its
+    instance in the Explorer's filters for those clicks only), each count
+    set to 0 before them and read after. With the hook: each call gets the
+    final slot itself (CUDA tensors, the same bits as ``pipeline.output``'s)
+    and the pixel in its coordinates, clamped (one click lies past the
+    grid's edge); neither kind of click launches a kernel."""
+    pixels = [(int(x), int(y)) for x, y in rng.integers(0, width, size=(n_clicks - 1, 2))]
+    pixels.append((width + 57, height // 3))
+
+    def clicks():
+        zero_counts()
+        ms = [command_ms(lambda xy=xy: ex.set_selected_pixel(*xy))[0] for xy in pixels]
+        return ms, read_counts()
+
+    without_ms, without = clicks()
+    probe = show_data_probe()
+    ex.pipeline.filters[probe.uuid] = probe
+    try:
+        with_ms, with_hook = clicks()
+    finally:
+        del ex.pipeline.filters[probe.uuid]
+    assert len(probe.seen) == len(pixels)
+    out = ex.pipeline.output
+    s = out.scaling
+    vw, vh = ex.pipeline.valid_for(out)
+    for (cube, pixel), (x, y) in zip(probe.seen, pixels):
+        assert cube is out, "show_data got another cube than the final slot"
+        assert pixel == (min(x // s, vw - 1), min(y // s, vh - 1)), (pixel, x, y)
+        for f in _PM_SLOT_FIELDS:
+            got = getattr(cube, f)
+            assert got.device == ex.device and same_bits(got, getattr(out, f)), f
+    assert all(v == 0 for v in without.values()), without
+    assert all(v == 0 for v in with_hook.values()), with_hook
+    return dict(clicks=len(pixels), click_ms_median=statistics.median(without_ms[1:]),
+                click_ms=without_ms, hook_click_ms_median=statistics.median(with_ms[1:]),
+                hook_click_ms=with_ms, launches_without_hook=without,
+                launches_with_hook=with_hook, hook_calls=len(probe.seen),
+                hook_pixel_last=list(probe.seen[-1][1]), hook_device=str(ex.device),
+                hook_cube="the final slot itself (pipeline.materialize_output), tensors on the "
+                          "Explorer's device, bit for bit pipeline.output's")
+
+
+def inscribed_polygon(n, width, height):
+    """A regular n-gon inscribed in a width x height grid."""
+    a = 2 * np.pi * np.arange(n) / n
+    cx, cy = (width - 1) / 2, (height - 1) / 2
+    return [(int(round(cx + cx * np.cos(v))), int(round(cy + cy * np.sin(v)))) for v in a]
+
+
+def rasterizer_timings(ex, width, height, with_downscale):
+    """The ROI rasterizer at ``width`` x ``height``: for a 4- and a
+    20-vertex polygon inscribed in the grid, the C function's ms (median of
+    5) beside its plain Python version's (one run), their masks equal, and
+    the ``add_roi`` command's host ms (its publish included) on ``ex``,
+    the ROI deleted after; with ``with_downscale``, the downscale to 3 and
+    back, which rasterize every polygon again."""
+    from thz_image_explorer_tpu_torch.ops import roi
+
+    out = {}
+    for n in (4, 20):
+        poly = inscribed_polygon(n, width, height)
+        c_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mask = roi.polygon_mask(poly, (width, height))
+            c_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        plain = roi.polygon_mask_plain(poly, (width, height))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        assert np.array_equal(mask, plain) and mask.any(), n
+        zero_counts()
+        add_ms = command_ms(lambda: ex.add_roi(f"timed-{n}", f"timed {n}", poly))[0]
+        add_launches = read_counts()
+        ex.delete_roi(f"timed-{n}")
+        out[f"vertices{n}"] = dict(c_ms_median=statistics.median(c_ms), c_ms=c_ms,
+                                   plain_ms=plain_ms, masks_equal=True,
+                                   pixels=int(mask.sum()), add_roi_ms=add_ms,
+                                   add_roi_launches=add_launches)
+    if with_downscale:
+        out["downscale3_ms"] = command_ms(lambda: ex.set_downscaling(3))[0]
+        out["downscale1_ms"] = command_ms(lambda: ex.set_downscaling(1))[0]
+    return out
 
 
 _SMALL_SERIES = ("signal", "signal_fft", "phase_fft", "filtered_signal",
@@ -2062,6 +2175,61 @@ def md_path(cube, t, mesh, device, n_steps=_MD_STEPS, apply=True):
     return out, step_ms, apply_ms, view_ms, geometry
 
 
+#: the downscale of the multi-device phase's scaled step (divides neither
+#: 200 nor the 1x2 and 2x2 blocks of 200)
+_MD_SCALE = 3
+
+
+def md_scaled_step(cube, mesh, device):
+    """One ``lean_update`` at scale :data:`_MD_SCALE` (the main path's
+    filters, its ROIs rasterized on the downscaled grid, the pixel divided):
+    each rank's output is the mesh's block of the downscaled grid, the
+    ``Pipeline(mesh=)``'s layout. Returns (host ms, host numpy results
+    prefixed ``s3_``, with the output block's origin)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops.roi import polygon_mask
+    from thz_image_explorer_tpu_torch.parallel.step import StepConfig, StepParams, lean_update
+
+    s = _MD_SCALE
+    grid = (cube.grid_wh[0] // s, cube.grid_wh[1] // s)
+    masks = torch.as_tensor(np.stack([polygon_mask(p, grid, s)
+                                      for p in roi_polygons(*cube.grid_wh)]).astype(np.float32),
+                            device=device)
+    pix = (_MD_PIXEL[0] // s, _MD_PIXEL[1] // s)
+    cfg, params = StepConfig(**_MD_CFG, scale=s), StepParams(window_low=1.0 + 0.05 * _MD_STEPS)
+    ms, out = host_ms(lambda: lean_update(cube, params, cfg, masks, pix, mesh), device)
+    host = {f"s3_{k}": (torch.view_as_real(v) if v.is_complex() else v).cpu().numpy()
+            for k, v in out.items()}
+    host["s3_origin"] = np.asarray(mesh.block(None, grid)[::2] if mesh is not None else (0, 0))
+    return ms, host
+
+
+def md_compare_scaled(got, ref, label):
+    """A scaled step's results (``md_scaled_step``'s) against the single
+    device's: the block's data and image bit for bit (or within 1e-6 *
+    max), the series at the main path's tolerance. Returns (largest
+    differences, which per-pixel outputs are bit for bit)."""
+    x0, y0 = (int(v) for v in got["s3_origin"])
+    diffs, equal = {}, {}
+    for key in ("s3_data", "s3_img"):
+        g = got[key]
+        w = ref[key][x0: x0 + g.shape[0], y0: y0 + g.shape[1]]
+        assert g.shape == w.shape and g.size, (label, key, g.shape, w.shape)
+        d = float(np.abs(g - w).max())
+        equal[key] = bool(np.array_equal(g, w))
+        assert equal[key] or d <= _MD_PIXEL_TOL * float(np.abs(w).max()), (label, key, d)
+        diffs[key] = d
+    for key in _MD_SERIES:
+        g, w = got[f"s3_{key}"], ref[f"s3_{key}"]
+        if key in _MD_PHASES:
+            diffs[key] = md_phase_close(g, w)
+        else:
+            np.testing.assert_allclose(g, w, atol=_MD_ATOL, rtol=_MD_RTOL, err_msg=f"{label} {key}")
+            diffs[key] = float(np.abs(g - w).max())
+    return diffs, equal
+
+
 def md_host(out, open_data, open_img, origin):
     """A path's results as host numpy, for the comparisons."""
     import torch
@@ -2144,6 +2312,9 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
         res.update(view_collective_ms=m.ms, view_collective_bytes=m.bytes,
                    view_collective_calls=m.calls)
         res["bands"] = dec.band_split(geometry.n_iter, world)[rank].tolist()
+        zero_counts()
+        res["scaled_step_ms"], scaled = md_scaled_step(cube, mesh, device)
+        res["scaled_step_launches"] = read_counts()
         # this rank's kernel calls against their plain versions, on its block
         if torch.device(device).type == "cuda":
             c, window = _spectrum(cube, params, cfg)
@@ -2159,7 +2330,8 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
             res["envelope_max_abs_err"] = check_envelope(flat, taps, 2.0, _VIEW_OPACITY_THRESHOLD,
                                                          f"rank {rank} block")[0]
             assert env.envelope.launches > 0
-        np.savez(Path(outdir, f"rank{rank}.npz"), **md_host(out, cube.data, img, cube.origin))
+        np.savez(Path(outdir, f"rank{rank}.npz"), **md_host(out, cube.data, img, cube.origin),
+                 **scaled)
     finally:
         Path(outdir, f"rank{rank}.json").write_text(json.dumps(res))
         dist.destroy_process_group()
@@ -2167,7 +2339,7 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
 
 def spawn_world(world, npy, t, mode, workdir, device="cuda"):
     """``world`` spawned ranks of :func:`md_pm_rank` (``mode`` its
-    ``(seed, scale)``) sharing the card over gloo; joined with a timeout (a
+    ``(seed, odd, scale)``) sharing the card over gloo; joined with a timeout (a
     rank still running is killed, and a rank's ``.err`` anywhere under
     ``workdir`` fails the phase). Returns each rank's multi-device (json,
     npz path) in ``workdir``."""
@@ -2296,6 +2468,7 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
     whole, whole_img = finalize_scan(open_scan_arrays(t, cube, scan_metadata(0.5)), device)
     ref_out, _, ref_apply_ms, ref_view_ms, geometry = md_path(whole, t, None, device)
     ref = md_host(ref_out, whole.data, whole_img, (0, 0))
+    ref_scaled_ms, ref_scaled = md_scaled_step(whole, None, device)
     backend = "nccl" if is_cuda else "gloo"
     mesh = pm.init(device, backend=backend, init_method=f"file://{tmp.name}/store1", rank=0,
                    world_size=1)
@@ -2309,10 +2482,13 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
         with CollectiveMeter(device) as m1:
             md_path(block, t, mesh, device, n_steps=1, apply=False)
         view1_again_ms = host_ms(lambda: md_view(out1["data"], block, mesh), device)[0]
+        scaled1_ms, scaled1 = md_scaled_step(block, mesh, device)
     finally:
         dist.destroy_process_group()
     one = md_host(out1, block.data, img1, block.origin)
     diffs1, equal1 = md_compare(one, ref, "1 rank")
+    scaled_equal1 = {k: bool(np.array_equal(v, ref_scaled[k])) for k, v in scaled1.items()}
+    assert all(scaled_equal1.values()), ("1 rank scale 3 vs the single device", scaled_equal1)
     for k in ("specred", "rlsep_cluster", "envelope"):
         assert counts1[k] > 0, (k, counts1)
     record["world1"] = dict(
@@ -2320,7 +2496,9 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
         update_ms=ms1, update_ms_median=statistics.median(ms1[1:]),
         single_device_apply_ms=ref_apply_ms, apply_ms=apply1_ms, view_ms=view1_ms,
         view_again_ms=view1_again_ms, single_device_view_ms=ref_view_ms,
-        launches=counts1, update_collective_ms=m1.ms, update_collective_bytes=m1.bytes)
+        launches=counts1, update_collective_ms=m1.ms, update_collective_bytes=m1.bytes,
+        scaled_step=dict(scale=_MD_SCALE, ms=scaled1_ms, single_device_ms=ref_scaled_ms,
+                         bit_for_bit_with_single_device=True))
     del out1, one, block, img1, ref_out
     if is_cuda:
         torch.cuda.empty_cache()
@@ -2329,21 +2507,35 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
     # then run the 512x512 scan of part 3)
     npy5 = str(Path(tmp.name, "scan512.npy"))
     np.save(npy5, cube5)
+    # the pipeline_mesh phase's odd-length scan (T = 1023), run by the same
+    # rank processes
+    t_odd, cube_odd = synthetic_scan(cube.shape[0], cube.shape[1], cube.shape[2] - 1,
+                                     seed=pm_seed)
+    npy_odd = str(Path(tmp.name, "scan_odd.npy"))
+    np.save(npy_odd, cube_odd)
+    np.save(Path(tmp.name, "time_odd.npy"), t_odd)
+    del cube_odd
     dir5 = Path(tmp.name, "world4", "512")
     raw_spec = None
     for world in (2, 4):
         wdir = Path(tmp.name, f"world{world}")
         Path(wdir, "pm").mkdir(parents=True)
+        Path(wdir, "pm_odd").mkdir(parents=True)
         dir5.mkdir(parents=True, exist_ok=True)
         scale = (npy5, t5, str(dir5)) if world == 4 else None
-        ranks = spawn_world(world, npy, t, (pm_seed, scale), str(wdir), device)
+        ranks = spawn_world(world, npy, t, (pm_seed, (npy_odd, t_odd), scale), str(wdir), device)
         per_rank = []
         for res, path in ranks:
             got = dict(np.load(path))
             diffs, equal = md_compare(got, ref, f"{world} ranks, rank {res['rank']}")
             for k in ("specred", "rlsep_cluster", "envelope"):
                 assert res["launches"][k] > 0, (world, res["rank"], k, res["launches"])
-            per_rank.append(dict(res, bit_for_bit=equal, max_abs_diff=diffs))
+            s_diffs, s_equal = md_compare_scaled(got, ref_scaled,
+                                                 f"{world} ranks, rank {res['rank']}, scale 3")
+            assert res["scaled_step_launches"]["specred"] == 1, res["scaled_step_launches"]
+            per_rank.append(dict(res, bit_for_bit=equal, max_abs_diff=diffs,
+                                 scaled_step=dict(bit_for_bit=s_equal, max_abs_diff=s_diffs,
+                                                  origin=got["s3_origin"].tolist())))
             del got
         # the kernels' device time at this world's block shapes (rank 0's)
         x0, x1, y0, y1 = pm.Mesh(pm.grid_shape(world)).block(0, cube.shape[:2])
@@ -2380,6 +2572,10 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
             apply_again_ms_largest_rank=max(r["apply_again_ms"] for r in per_rank),
             view_ms_largest_rank=max(r["view_ms"] for r in per_rank),
             view_again_ms_largest_rank=max(r["view_again_ms"] for r in per_rank),
+            # the scale-3 step, a process's first at that grid (its cuFFT plans)
+            scaled_step_ms_largest_rank=max(r["scaled_step_ms"] for r in per_rank),
+            scaled_step_bit_for_bit=all(all(r["scaled_step"]["bit_for_bit"].values())
+                                        for r in per_rank),
             kernels_at_block=kernels_at_block,
             ranks=per_rank)
         del spec_b, stack, flat_b
@@ -2478,12 +2674,13 @@ def pm_click(xy):
     return run
 
 
-def pm_script(seed):
+def pm_script(seed, short=False):
     """The commands of the phase, as ``(name, kind, command)``; each command
     is followed by a publish. Open; 5 slider steps (window low 1.05-1.25);
     10 clicks; a downscale to 3 and back to 1; tilt to (2°, 2°) and off;
     the Apply (default parameters, the synthetic PSF) and a repeat Apply;
-    a slider step after them."""
+    a slider step after them. ``short`` (the odd-length pass): open, 3
+    slider steps, 5 clicks, the downscale to 3 and back."""
     rng = np.random.default_rng(seed)
 
     def scale(f):
@@ -2503,13 +2700,16 @@ def pm_script(seed):
         s.p.filters[DEC].active = True
         s.p.update_filter(DEC, force=True)
 
+    n_slider, n_clicks = (3, 5) if short else (_MD_STEPS, _PM_CLICKS)
     steps = [("open", "open", lambda s: s.p.set_input(s.cube))]
     steps += [(f"slider{i + 1}", "slider", pm_window(1.0 + 0.05 * (i + 1)))
-              for i in range(_MD_STEPS)]
+              for i in range(n_slider)]
     steps += [(f"click{i + 1}", "click", pm_click((int(x), int(y))))
-              for i, (x, y) in enumerate(rng.integers(0, 200, size=(_PM_CLICKS, 2)))]
-    steps += [("downscale3", "downscale", scale(_PM_SCALE)), ("downscale1", "downscale", scale(1)),
-              ("tilt", "tilt", tilt(True)), ("tilt_off", "tilt", tilt(False)),
+              for i, (x, y) in enumerate(rng.integers(0, 200, size=(n_clicks, 2)))]
+    steps += [("downscale3", "downscale", scale(_PM_SCALE)), ("downscale1", "downscale", scale(1))]
+    if short:
+        return steps
+    steps += [("tilt", "tilt", tilt(True)), ("tilt_off", "tilt", tilt(False)),
               ("apply", "apply", apply), ("apply_again", "apply", apply),
               ("slider_after_apply", "slider_after_apply", pm_window(1.30))]
     return steps
@@ -2632,13 +2832,13 @@ def pm_check_launches(record, label):
         assert counts["rlsep"] == counts["rlsep_grouped"] == counts["rl2d"] == 0, (label, name)
 
 
-def pm_drive(client, device, seed, on_step=lambda step, host: None):
+def pm_drive(client, device, seed, on_step=lambda step, host: None, short=False):
     """:func:`pm_script` and the dense extraction on ``client``, each
     command timed on the host (a synchronize on each side) with every
     launch count set to 0 just before it and read just after. Returns
     ``(per command (name, kind, ms, launches), dense result)``."""
     record = []
-    for step in pm_script(seed):
+    for step in pm_script(seed, short):
         zero_counts()
         ms, host = host_ms(lambda: pm_run(client, step), device)
         record.append((step[0], step[1], ms, read_counts()))
@@ -2667,15 +2867,16 @@ def pm_summary(record):
     return out
 
 
-def pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device="cuda"):
+def pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device="cuda", short=False):
     """One spawned rank of the ``pipeline_mesh`` phase (gloo, all ranks on
     one card): its block of the memory-mapped scan into ``Pipeline(mesh=)``,
-    the script and the dense extraction, then the collectives and the
-    kernel checks on its block. Writes ``rank<r>.json`` (timings, launches,
-    slot checksums per command, the dense digest) and ``rank<r>.npz`` (the
-    published series per command and its block of the Apply)."""
+    the script (:func:`pm_script`, ``short`` for the odd-length pass) and
+    the dense extraction, then the collectives and the kernel checks on its
+    block. Writes ``rank<r>.json`` (timings, launches, slot checksums per
+    command, the dense digest) and ``rank<r>.npz`` (the published series
+    per command and its block of the Apply)."""
     try:
-        _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device)
+        _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device, short)
     except BaseException:
         import traceback
 
@@ -2686,21 +2887,24 @@ def pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device="cuda"):
 def md_pm_rank(rank, world, store, npy, t, mode, outdir, device="cuda"):
     """One spawned rank: :func:`multi_device_rank`'s work on the 200x200
     scan into ``outdir``, then in the same process and a new group
-    :func:`pipeline_mesh_rank`'s into ``<outdir>/pm``; ``mode`` is
-    ``(seed, scale)``: the pipeline_mesh seed, and None or ``(npy, t,
-    outdir)`` of the 512x512 scan, whose open and 3 steps (the "scale"
-    mode) follow in a third group. The process starts, imports and makes
-    its CUDA context once for all of them."""
-    seed, scale = mode
+    :func:`pipeline_mesh_rank`'s into ``<outdir>/pm``, then its odd-length
+    pass into ``<outdir>/pm_odd``; ``mode`` is ``(seed, odd, scale)``: the
+    pipeline_mesh seed, ``(npy, t)`` of the odd-length scan, and None or
+    ``(npy, t, outdir)`` of the 512x512 scan, whose open and 3 steps (the
+    "scale" mode) follow in a last group. The process starts, imports and
+    makes its CUDA context once for all of them."""
+    seed, (npy_odd, t_odd), scale = mode
     multi_device_rank(rank, world, store, npy, t, "full", outdir, device)
     pipeline_mesh_rank(rank, world, store + "_pm", npy, t, seed, str(Path(outdir, "pm")),
                        device)
+    pipeline_mesh_rank(rank, world, store + "_pm_odd", npy_odd, t_odd, seed,
+                       str(Path(outdir, "pm_odd")), device, short=True)
     if scale is not None:
         npy5, t5, outdir5 = scale
         multi_device_rank(rank, world, store + "_512", npy5, t5, "scale", outdir5, device)
 
 
-def _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device):
+def _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device, short):
     import torch
     import torch.distributed as dist
 
@@ -2735,7 +2939,7 @@ def _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device):
                 series["apply/data"] = client.p.output.data.cpu().numpy()
                 series["apply/origin"] = np.asarray(client.p.output.origin)
 
-        record, dense = pm_drive(client, device, seed, keep)
+        record, dense = pm_drive(client, device, seed, keep, short)
         mark("script")
         res.update(record=record, summary=pm_summary(record), dense=dense_digest(dense),
                    measure=pm_measure(client, device, f"{world} ranks, rank {rank}"),
@@ -2793,17 +2997,46 @@ def pm_compare_series(got, ref, label, device, kinds, apply_scale):
 
 def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
     """The ``pipeline_mesh`` phase: the incremental ``Pipeline`` and its
-    ``Publisher`` on one rank's block of the 200x200x1024 scan. One rank
-    over NCCL in this process, in lockstep with the single-device
-    ``Pipeline`` (every slot, series, the Apply and the dense extraction bit
-    for bit after every command); 2 (1x2) and 4 (2x2) spawned ranks over
-    gloo on the one card against the one-rank run (slots by checksum over
-    each rank's block, bit for bit; series at the multi-device tolerance;
-    the Apply within 1e-4 * max; the dense extraction's digest equal). Each
-    rank's launches per command, host ms, collectives and peak memory. The
-    spawned ranks ran in the multi_device phase's processes
-    (:func:`md_pm_rank`); ``work`` is that phase's temporary directory,
+    ``Publisher`` on one rank's block of the 200x200x1024 scan, then the
+    odd-length pass on a 200x200x1023 scan (:func:`pm_script`'s short
+    script). For each: one rank over NCCL in this process, in lockstep with
+    the single-device ``Pipeline`` (every slot, series, the Apply and the
+    dense extraction bit for bit after every command); 2 (1x2) and 4 (2x2)
+    spawned ranks over gloo on the one card against the one-rank run (slots
+    by checksum over each rank's block, bit for bit; series at the
+    multi-device tolerance; the Apply within 1e-4 * max; the dense
+    extraction's digest equal). Each rank's launches per command, host ms,
+    collectives and peak memory. The spawned ranks ran in the multi_device
+    phase's processes (:func:`md_pm_rank`); ``work`` is that phase's
+    temporary directory, which holds both scans and the ranks' results, and
     which this one reads and removes. Returns the phase's record."""
+    tmp = work
+    record = dict(shape=list(cube.shape), card=smi, filters=list(_PM_FILTERS), rois=4,
+                  pixel=list(_MD_PIXEL), clicks=_PM_CLICKS, scale=_PM_SCALE, tilt=list(_PM_TILT),
+                  apply="default DeconvolutionParams (25 bands, 500 iterations), synthetic PSF",
+                  dense_opacity_threshold=_VIEW_OPACITY_THRESHOLD,
+                  timing="host ms of each command and its publish, a synchronize on each "
+                         "side; by kind the largest rank's median of slider steps 2-5 and "
+                         "clicks 2-10")
+    record.update(pm_pass(t, cube, str(Path(tmp.name, "scan.npy")), tmp, "pm", seed, False, name,
+                          device))
+    t_odd = np.load(Path(tmp.name, "time_odd.npy"))
+    npy_odd = str(Path(tmp.name, "scan_odd.npy"))
+    cube_odd = np.load(npy_odd, mmap_mode="r")
+    record["odd"] = dict(
+        shape=list(cube_odd.shape),
+        commands="open, 3 slider steps, 5 clicks, downscale to 3 and back, a dense extraction",
+        **pm_pass(t_odd, cube_odd, npy_odd, tmp, "pm_odd", seed, True, name, device))
+    del cube_odd
+    tmp.cleanup()
+    return record
+
+
+def pm_pass(t, cube, npy, tmp, sub, seed, short, name, device):
+    """One pass of the phase on the scan saved at ``npy``: the one-rank run
+    in lockstep with the single device, then the 2- and 4-rank results under
+    ``<tmp>/world<w>/<sub>`` against it. Returns ``{"world1": ...,
+    "world2": ..., "world4": ...}``."""
     import torch
     import torch.distributed as dist
 
@@ -2814,39 +3047,34 @@ def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
     from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
 
     is_cuda = torch.device(device).type == "cuda"
-    tmp = work
-    npy = str(Path(tmp.name, "scan.npy"))
-    record = dict(shape=list(cube.shape), card=smi, filters=list(_PM_FILTERS), rois=4,
-                  pixel=list(_MD_PIXEL), clicks=_PM_CLICKS, scale=_PM_SCALE, tilt=list(_PM_TILT),
-                  apply="default DeconvolutionParams (25 bands, 500 iterations), synthetic PSF",
-                  dense_opacity_threshold=_VIEW_OPACITY_THRESHOLD,
-                  timing="host ms of each command and its publish, a synchronize on each "
-                         "side; by kind the largest rank's median of slider steps 2-5 and "
-                         "clicks 2-10")
+    record = {}
     worlds = {w: [pm.Mesh(pm.grid_shape(w), r) for r in range(w)] for w in (2, 4)}
+    script = pm_script(seed, short)
+    kinds = {n: k for n, k, _ in script}
+    has_apply = "apply" in kinds.values()
 
     # 1. one rank over NCCL (gloo off the card), in lockstep with the
     # single-device Pipeline
     t_one = time.perf_counter()
     if is_cuda:
         torch.cuda.reset_peak_memory_stats()
-    whole, _ = finalize_scan(open_scan_arrays(t, cube, scan_metadata(0.5)), device)
+    whole, _ = finalize_scan(open_scan_arrays(t, np.asarray(cube), scan_metadata(0.5)), device)
     backend = "nccl" if is_cuda else "gloo"
-    mesh = pm.init(device, backend=backend, init_method=f"file://{tmp.name}/store_pm1", rank=0,
-                   world_size=1)
+    mesh = pm.init(device, backend=backend, init_method=f"file://{tmp.name}/store_{sub}1",
+                   rank=0, world_size=1)
     mismatches, ref_ms, series, checksums = [], {}, {}, {}
     try:
         block, _, _ = open_arrays_sharded(t, np.load(npy, mmap_mode="r"), mesh,
                                           metadata=scan_metadata(0.5), device=device)
         ref = PmClient(Pipeline(device), whole, device)
         one = PmClient(Pipeline(device, mesh=mesh), block, device)
-        script = {s[0]: s for s in pm_script(seed)}
+        by_name = {s[0]: s for s in script}
         rl_case = {}
 
         def lockstep(step, host):
             """The single device runs the same command after the mesh's,
             outside its timing and counts; then every slot and series."""
-            ms, want = host_ms(lambda: pm_run(ref, script[step[0]]), device)
+            ms, want = host_ms(lambda: pm_run(ref, by_name[step[0]]), device)
             ref_ms[step[0]] = ms
             for i, (a, b) in enumerate(zip(ref.p.slots, one.p.slots)):
                 mismatches.extend(f"{step[0]} slot {i} {f}" for f in _PM_SLOT_FIELDS
@@ -2862,17 +3090,16 @@ def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
             if step[0] == "apply_again":
                 rl_case["apply"] = one.p.output.data
 
-        record1, dense1 = pm_drive(one, device, seed, lockstep)
+        record1, dense1 = pm_drive(one, device, seed, lockstep, short)
         dense_ref = ref.dense()
         for a, b in zip(dense_ref, dense1):
             if not np.array_equal(np.asarray(a), np.asarray(b)):
                 mismatches.append("dense")
-        measure1 = pm_measure(one, device, "1 rank")
+        measure1 = pm_measure(one, device, f"{sub} 1 rank")
     finally:
         dist.destroy_process_group()
-    assert not mismatches, ("1 rank vs the single device", mismatches[:20])
-    pm_check_launches(record1, "1 rank")
-    apply1 = rl_case["apply"].cpu().numpy()
+    assert not mismatches, (f"{sub}: 1 rank vs the single device", mismatches[:20])
+    pm_check_launches(record1, f"{sub} 1 rank")
     digest1 = dense_digest(dense1)
     record["world1"] = dict(
         backend=backend, mesh=[1, 1], bit_for_bit_with_single_device=True,
@@ -2883,21 +3110,24 @@ def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
         dense=dict(points=digest1[0], threshold=digest1[1]),
         measure=measure1,
         peak_bytes_both_pipelines=torch.cuda.max_memory_allocated() if is_cuda else None)
-    padded, px, py, n_iter = rl_case["inputs"]
+    if has_apply:
+        apply1 = rl_case["apply"].cpu().numpy()
+        padded, px, py, n_iter = rl_case["inputs"]
+        apply_scale = float(np.nanmax(np.abs(apply1)))
+    else:
+        apply_scale = None
     del ref, one, whole, block, rl_case, dense1, dense_ref
     if is_cuda:
         torch.cuda.empty_cache()
 
     # 2. 2 and 4 ranks sharing the card over gloo, against the one-rank run
-    apply_scale = float(np.nanmax(np.abs(apply1)))
-    kinds = {n: k for n, k, _ in pm_script(seed)}
     applied = f"{len(Pipeline(device).chain) - 1}/data"
     for world, meshes in worlds.items():
         t_cmp = time.perf_counter()
-        ranks = rank_results(Path(tmp.name, f"world{world}", "pm"), world)
+        ranks = rank_results(Path(tmp.name, f"world{world}", sub), world)
         per_rank = []
         for res, path in ranks:
-            r, label = res["rank"], f"pipeline_mesh {world} ranks, rank {res['rank']}"
+            r, label = res["rank"], f"pipeline_mesh {sub} {world} ranks, rank {res['rank']}"
             pm_check_launches(res["record"], label)
             # the Apply's own output is held to a tolerance below (the
             # ranks' band subsets sum in another order)
@@ -2907,27 +3137,31 @@ def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
             assert not bad, (label, "slots differ from the one-rank run's block", bad[:20])
             got = dict(np.load(path))
             worst = pm_compare_series(got, series, label, device, kinds, apply_scale)
-            blk = got.pop("apply/data")
-            x0, y0 = (int(v) for v in got.pop("apply/origin"))
-            apply_err = float(np.nanmax(np.abs(blk - apply1[x0: x0 + blk.shape[0],
-                                                            y0: y0 + blk.shape[1]])))
-            assert apply_err <= _MD_APPLY_TOL * apply_scale, (label, apply_err, apply_scale)
             assert tuple(res["dense"]) == digest1, (label, res["dense"], digest1)
-            # the RL kernel on this rank's bands (the gathered canvases are
-            # the same on every rank), in this process
-            bands = torch.as_tensor(dec.band_split(n_iter, world)[r], device=device)
-            sub = [v.index_select(0, bands).contiguous() for v in (padded, px, py)]
-            rl_err = check_rl(*sub, n_iter[bands.cpu().numpy()], label, "cluster")[0] \
-                if is_cuda else None
-            per_rank.append(dict(
+            rank_record = dict(
                 rank=r, block=list(meshes[r].block(None, cube.shape[:2])), ms=res["summary"],
                 launches={k: sum(c[k] for *_, c in res["record"]) for k in res["record"][0][3]},
-                apply_launches=[c["rlsep_cluster"] for _, kind, _, c in res["record"]
-                                if kind == "apply"],
-                series_max_abs_diff=worst, apply_max_abs_diff=apply_err,
-                measure=res["measure"], rlsep_cluster_bands_max_abs_err=rl_err,
-                peak_bytes=res["peak_bytes"], wall_s=res["wall_s"]))
-            del got, blk
+                series_max_abs_diff=worst, measure=res["measure"],
+                peak_bytes=res["peak_bytes"], wall_s=res["wall_s"])
+            if has_apply:
+                blk = got.pop("apply/data")
+                x0, y0 = (int(v) for v in got.pop("apply/origin"))
+                apply_err = float(np.nanmax(np.abs(blk - apply1[x0: x0 + blk.shape[0],
+                                                                y0: y0 + blk.shape[1]])))
+                assert apply_err <= _MD_APPLY_TOL * apply_scale, (label, apply_err, apply_scale)
+                # the RL kernel on this rank's bands (the gathered canvases
+                # are the same on every rank), in this process
+                bands = torch.as_tensor(dec.band_split(n_iter, world)[r], device=device)
+                sub_in = [v.index_select(0, bands).contiguous() for v in (padded, px, py)]
+                rl_err = check_rl(*sub_in, n_iter[bands.cpu().numpy()], label, "cluster")[0] \
+                    if is_cuda else None
+                rank_record.update(
+                    apply_launches=[c["rlsep_cluster"] for _, kind, _, c in res["record"]
+                                    if kind == "apply"],
+                    apply_max_abs_diff=apply_err, rlsep_cluster_bands_max_abs_err=rl_err)
+                del blk
+            per_rank.append(rank_record)
+            del got
         ms_kinds = per_rank[0]["ms"].keys()
         record[f"world{world}"] = dict(
             backend="gloo", mesh=list(pm.grid_shape(world)),
@@ -2939,7 +3173,6 @@ def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
                 for k in ("slider", "click")},
             peak_bytes_largest_rank=max(p["peak_bytes"] or 0 for p in per_rank),
             ranks=per_rank)
-    tmp.cleanup()
     return record
 
 
@@ -3051,6 +3284,14 @@ def main() -> int:
     main_spec = ex.pipeline.slots[ex.pipeline.fft_index].fft.reshape(n, f)
     main_masks = torch.cat([torch.ones((1, n), device=dev),
                             ex._mask_stack.reshape(-1, n)])
+
+    # 4a. the show_data hook on a click (clicks without and with a stage
+    # overriding it), then the ROI rasterizer (csrc/roi.c) beside its plain
+    # version, add_roi and the downscale that rasterizes again
+    emit(phase="show_data", shape=[width, height, n_time], card=smi,
+         **drive_show_data(ex, width, height, np.random.default_rng(args.seed + 3)))
+    roi_200 = rasterizer_timings(ex, width, height, with_downscale=True)
+    check_published(ex, width, height, n_time)
 
     # 4b. the envelope kernel vs its plain version: the main path's own final
     # cube at the view's settings, then ragged inputs
@@ -3589,6 +3830,13 @@ def main() -> int:
          view_threshold=scale_view[5],
          view_memory_allocated_before=resident,
          view_max_memory_allocated=torch.cuda.max_memory_allocated())
+    roi_512 = rasterizer_timings(ex5, 512, 512, with_downscale=False)
+    emit(phase="roi_rasterizer", card=smi, source="thz_image_explorer_tpu_torch/csrc/roi.c",
+         replaces="thz_image_explorer_tpu/native/thznative.c:86 (thz_polygon_mask), host C",
+         grid200=roi_200, grid512=roi_512,
+         timing="host ms; C: median of 5 calls of ops.roi.polygon_mask, plain: one call of "
+                "polygon_mask_plain; add_roi: the command with its publish, a synchronize on "
+                "each side")
     # both redesigned kernels on this scan's own inputs
     n5 = 512 * 512
     spec5 = ex5.pipeline.slots[ex5.pipeline.fft_index].fft.reshape(n5, f)
@@ -3627,10 +3875,11 @@ def main() -> int:
     # and read just after, in each rank's own process)
     pipe = phase_pipeline_mesh(t, cube, name, smi, args.seed, md_work)
     emit(phase="pipeline_mesh", **pipe)
-    pm_launches = {kernel: {"world1": pipe["world1"]["launches"][kernel],
-                            **{f"world{w}": [r["launches"][kernel] for r in pipe[f"world{w}"]["ranks"]]
-                               for w in (2, 4)}}
-                   for kernel in ("specred", "rlsep_cluster", "envelope")}
+    pm_launches, pm_odd_launches = ({kernel: {
+        "world1": rec["world1"]["launches"][kernel],
+        **{f"world{w}": [r["launches"][kernel] for r in rec[f"world{w}"]["ranks"]]
+           for w in (2, 4)}} for kernel in ("specred", "rlsep_cluster", "envelope")}
+        for rec in (pipe, pipe["odd"]))
 
     # 10. the kernels line
     print(json.dumps({"kernels": [{
@@ -3666,6 +3915,7 @@ def main() -> int:
         # per rank of the multi_device phase, and the block shapes' times
         "launches_multi_device": md_launches["specred"],
         "launches_pipeline_mesh": pm_launches["specred"],
+        "launches_pipeline_mesh_odd": pm_odd_launches["specred"],
         "multi_device_block": {w: dict(n=v["n"], ms=v["specred_ms"], bound_ms=v["specred_bound_ms"])
                                for w, v in md_block.items()},
     }, {
@@ -3749,6 +3999,7 @@ def main() -> int:
         "launches_shell": shell_launches["envelope"],
         "launches_multi_device": md_launches["envelope"],
         "launches_pipeline_mesh": pm_launches["envelope"],
+        "launches_pipeline_mesh_odd": pm_odd_launches["envelope"],
         "multi_device_block": {w: dict(n=v["n"], ms=v["envelope_ms"],
                                        bound_ms=v["envelope_bound_ms"])
                                for w, v in md_block.items()},

@@ -50,13 +50,19 @@ class Recording:
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=["1x2", "2x2"])
-@pytest.mark.parametrize("multiple", [1, 2])
-def test_open_scan_sharded_equals_loader_per_block(scan, shape, multiple):
+@pytest.mark.parametrize("explicit_rank", [False, True], ids=["mesh_rank", "rank_argument"])
+def test_open_scan_sharded_equals_loader_per_block(scan, shape, explicit_rank):
+    """Each rank's block, named by the mesh's own rank or by the ``rank``
+    argument of a mesh that is another rank's."""
     whole, img = finalize_scan(open_scan_host(scan), device="cpu")
     for r in range(shape[0] * shape[1]):
-        mesh = pm.Mesh(shape, rank=r)
-        cube, bimg, md = open_scan_sharded(scan, mesh, device="cpu", multiple=multiple)
-        x0, x1, y0, y1 = mesh.block(r, (30, 22), multiple)
+        if explicit_rank:
+            mesh = pm.Mesh(shape, rank=(r + 1) % (shape[0] * shape[1]))
+            cube, bimg, md = open_scan_sharded(scan, mesh, rank=r, device="cpu")
+        else:
+            mesh = pm.Mesh(shape, rank=r)
+            cube, bimg, md = open_scan_sharded(scan, mesh, device="cpu")
+        x0, x1, y0, y1 = mesh.block(r, (30, 22))
         assert cube.origin == (x0, y0) and cube.grid == (30, 22)
         assert torch.equal(cube.data, whole.data[x0:x1, y0:y1])
         assert torch.equal(bimg, img[x0:x1, y0:y1])

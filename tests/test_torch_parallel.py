@@ -6,11 +6,15 @@ against the JAX package and against its own unsharded functions, on the CPU.
   stages on, averaging in Fourier space, downscales by 2 and 3), at the
   main path's tolerance (atol 5e-5, rtol 1e-4);
 * the split rule: the rank grid is JAX ``make_mesh``'s, blocks tile ragged
-  grids at scale multiples, ``cube_sharding`` names JAX's placements;
+  grids, a downscale by 3 or 7 of a grid neither divides gives each rank
+  the mesh's block of the downscaled grid with the single device's values
+  (ranks as threads of this process, their one exchange joined in memory),
+  ``cube_sharding`` names JAX's placements;
 * real multi-process runs: 2 (1x2) and 4 (2x2) ranks, one spawned process
   each, joined over gloo through a ``file://`` store
   (``tests/torch_parallel_worker.py``). Each rank opens only its block of
-  the ragged scan file and runs the sharded update at scale 1 and 2, the
+  the ragged scan file and runs the sharded update at scale 1, 2, 3 and 7
+  (each output on the mesh's block of the output grid), the
   sharded Apply (and one cancelled on one rank), the sharded live view and
   a ``grid_gather`` round trip; the parent compares with the unsharded port
   (per-pixel outputs bit for bit, means within rtol 1e-5 / atol 1e-6, the
@@ -141,28 +145,95 @@ def test_grid_shape_matches_jax_make_mesh(n):
     assert pm.grid_shape(n) == jax_mesh.make_mesh(jax.devices()[:n]).devices.shape
 
 
-@pytest.mark.parametrize("grid,shape,multiple", [
-    ((30, 22), (2, 2), 1), ((30, 22), (2, 2), 2), ((30, 22), (1, 2), 3), ((31, 17), (2, 3), 2),
-    ((200, 200), (2, 2), 1), ((512, 512), (2, 4), 4), ((16, 16), (2, 4), 1),
+class ThreadMesh:
+    """The ranks of a mesh as threads of this process: each thread's
+    ``all_sum`` hands its tensor in, waits for the others, and gets the sum
+    in rank order (the collective of ``ops/scaling``'s one exchange)."""
+
+    def __init__(self, shape):
+        import threading
+
+        self.shape = shape
+        self.world = shape[0] * shape[1]
+        self.barrier = threading.Barrier(self.world)
+        self.parts = [None] * self.world
+
+    def all_sum(self, t, mesh):
+        self.parts[mesh.rank] = t
+        self.barrier.wait()
+        out = self.parts[0].clone()
+        for p in self.parts[1:]:
+            out = out + p
+        self.barrier.wait()
+        return out
+
+    def run(self, fn):
+        """``fn(mesh)`` on every rank's thread; the results in rank order."""
+        import threading
+
+        out, errors = [None] * self.world, []
+
+        def one(r):
+            try:
+                out[r] = fn(pm.Mesh(self.shape, r))
+            except BaseException as e:  # noqa: BLE001 (re-raised below)
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(r,)) for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        if errors:
+            raise errors[0]
+        return out
+
+
+@pytest.mark.parametrize("grid,shape,scale", [
+    ((30, 22), (2, 2), 1), ((200, 200), (2, 2), 1), ((16, 16), (2, 4), 1),
+    ((31, 23), (1, 2), 3), ((31, 23), (2, 2), 3), ((31, 23), (1, 2), 7), ((31, 23), (2, 2), 7),
 ])
-def test_blocks_tile_the_grid(grid, shape, multiple):
+def test_blocks_tile_the_grid(grid, shape, scale, monkeypatch):
+    """The blocks of a grid tile it; after a downscale by a factor that
+    divides neither the grid nor its blocks, each rank holds the mesh's
+    block of the downscaled grid, with the single device's values bit for
+    bit (the one layout of the step and the ``Pipeline``)."""
+    from thz_image_explorer_tpu_torch.ops import scaling
+
     mesh = pm.Mesh(shape)
-    cover = np.zeros(grid, np.int32)
+    out_grid = (grid[0] // scale, grid[1] // scale)
+    cover = np.zeros(out_grid, np.int32)
     for r in range(mesh.world):
-        x0, x1, y0, y1 = mesh.block(r, grid, multiple)
-        assert x0 % multiple == 0 and y0 % multiple == 0
-        assert (x1 == grid[0] or (x1 - x0) % multiple == 0)
-        assert (y1 == grid[1] or (y1 - y0) % multiple == 0)
+        x0, x1, y0, y1 = mesh.block(r, out_grid)
         assert mesh.coords(r) == (r // shape[1], r % shape[1])
         cover[x0:x1, y0:y1] += 1
     assert (cover == 1).all()
+    if scale == 1:
+        return
+    assert grid[0] % scale and grid[1] % scale
+    t, data = _scan(*grid, n=16)
+    whole = make_cube(t, data, dx=1.0, dy=1.0, device="cpu")
+    whole = whole.replace(fft=torch.complex(whole.data[..., :9], -whole.data[..., 7:]),
+                          amplitudes=whole.data[..., :9] * 2, phases=whole.data[..., 7:] - 1)
+    want = scaling.scale_cube(whole, scale, valid_wh=whole.valid_wh)
+    threads = ThreadMesh(shape)
+    monkeypatch.setattr(scaling, "all_sum", threads.all_sum)
+    got = threads.run(lambda m: scaling.scale_cube(pm.shard_cube(whole, m), scale,
+                                                   valid_wh=whole.valid_wh, mesh=m))
+    for r, blk in enumerate(got):
+        x0, x1, y0, y1 = mesh.block(r, out_grid)
+        assert blk.origin == (x0, y0) and blk.grid == out_grid and blk.scaling == scale
+        assert blk.valid_wh == want.valid_wh
+        for f in scaling.FIELDS:
+            assert torch.equal(getattr(blk, f), getattr(want, f)[x0:x1, y0:y1]), (r, f)
 
 
 def test_block_refuses_an_empty_rank():
-    with pytest.raises(ValueError, match="fewer than"):
+    with pytest.raises(ValueError, match="no rows or columns"):
         pm.Mesh((1, 4)).block(3, (8, 5))
-    with pytest.raises(ValueError, match="fewer than"):
-        pm.Mesh((2, 1)).block(1, (5, 8), multiple=4)
+    with pytest.raises(ValueError, match="no rows or columns"):
+        pm.Mesh((2, 1)).block(1, (1, 8))
 
 
 def test_cube_sharding_names_jax_placements():
@@ -179,20 +250,25 @@ def test_shard_cube_keeps_global_fields():
     cube = make_cube(t, data, dx=1.0, dy=1.0, device="cpu")
     mesh = pm.Mesh((2, 2))
     for r in range(4):
-        b = pm.shard_cube(cube, mesh, r, multiple=2)
-        x0, x1, y0, y1 = mesh.block(r, (30, 22), 2)
+        b = pm.shard_cube(cube, mesh, r)
+        x0, x1, y0, y1 = mesh.block(r, (30, 22))
         assert b.origin == (x0, y0) and b.grid == (30, 22) and b.valid_wh == (30, 22)
         assert torch.equal(b.data, cube.data[x0:x1, y0:y1])
         assert b.fft.shape[:2] == (x1 - x0, y1 - y0) and b.time is cube.time
 
 
-def test_step_refuses_a_block_off_the_scale():
+def test_scale_cube_refuses_a_block_without_its_mesh():
+    """A block downscaled on its own would put a downscaled pixel that
+    straddles two blocks on neither: the step passes its mesh, and a block
+    without one is refused."""
+    from thz_image_explorer_tpu_torch.ops.scaling import scale_cube
+
     t, data = _scan(30, 22)
     block = pm.shard_cube(make_cube(t, data, device="cpu"), pm.Mesh((2, 2)), 3)
     assert block.origin == (15, 11)
-    with pytest.raises(ValueError, match="multiple=2"):
-        step.lean_update(block, step.StepParams(), step.StepConfig(scale=2),
-                         torch.zeros((0, 15, 11)), (0, 0))
+    with pytest.raises(ValueError, match="with its mesh"):
+        scale_cube(block, 2)
+    assert scale_cube(block, 1) is block
 
 
 def test_band_split_is_round_robin_by_trip_count():
@@ -280,7 +356,7 @@ def reference(scan_files):
     t = cube.time.numpy()
     out = {"cube": cube, "img": img.numpy()}
     jcube = jax_make_cube(t, cube.data.numpy(), dx=1.0, dy=1.0)
-    for name, _, kw in worker.STEPS:
+    for name, kw in worker.STEPS:
         s = kw.get("scale", 1)
         gx, gy = cube.width // s, cube.height // s
         masks, pix = _masks(gx, gy), worker.pixel(gx, gy)
@@ -305,10 +381,9 @@ def ranks(request, scan_files, tmp_path_factory):
     return world, _spawn(world, tmp_path_factory.mktemp(f"world{world}"), *scan_files)
 
 
-def _block(full, origin, like, scale=1):
-    """``full``'s pixels under the block ``like`` at ``origin`` (before a
-    downscale by ``scale``)."""
-    x0, y0 = origin[0] // scale, origin[1] // scale
+def _block(full, origin, like):
+    """``full``'s pixels under the block ``like`` at ``origin``."""
+    x0, y0 = origin
     return full[x0: x0 + like.shape[0], y0: y0 + like.shape[1]]
 
 
@@ -329,7 +404,7 @@ def test_sharded_open_equals_loader(ranks, reference):
     _, got = ranks
     whole, img = reference["cube"].data.numpy(), reference["img"]
     for o in got:
-        for name, _, _ in worker.STEPS:
+        for name, _ in worker.STEPS:
             blk = o[f"{name}_open"]
             np.testing.assert_array_equal(blk, _block(whole, o[f"{name}_origin"], blk))
             np.testing.assert_array_equal(o[f"{name}_open_img"],
@@ -338,15 +413,19 @@ def test_sharded_open_equals_loader(ranks, reference):
 
 @pytest.mark.parametrize("name", [s[0] for s in worker.STEPS])
 def test_sharded_lean_update_equals_unsharded(ranks, reference, name):
-    _, got = ranks
-    scale = dict((s[0], s[2]) for s in worker.STEPS)[name].get("scale", 1)
+    world, got = ranks
+    scale = dict(worker.STEPS)[name].get("scale", 1)
     ref = {k: (torch.view_as_real(v) if v.is_complex() else v).numpy()
            for k, v in reference[name].items()}
-    for o in got:
-        origin = o[f"{name}_origin"]
+    out_grid = (30 // scale, 22 // scale)
+    for r, o in enumerate(got):
+        # the output is the mesh's block of the output grid
+        origin = o[f"{name}_out_origin"]
+        x0, x1, y0, y1 = pm.Mesh(pm.grid_shape(world)).block(r, out_grid)
+        assert tuple(origin) == (x0, y0) and o[f"{name}_data"].shape[:2] == (x1 - x0, y1 - y0)
         for key in ("data", "img"):
             blk = o[f"{name}_{key}"]
-            np.testing.assert_array_equal(blk, _block(ref[key], origin, blk, scale), err_msg=key)
+            np.testing.assert_array_equal(blk, _block(ref[key], origin, blk), err_msg=key)
         for key in ("avg_signal", "roi_trace", "pix_sig", "pix_amp", "avg_amp", "roi_amp",
                     "avg_fft"):
             _close(o[f"{name}_{key}"], ref[key], MEAN_ATOL, MEAN_RTOL, key)
@@ -357,13 +436,12 @@ def test_sharded_lean_update_equals_unsharded(ranks, reference, name):
 @pytest.mark.parametrize("name", [s[0] for s in worker.STEPS])
 def test_sharded_lean_update_equals_jax(ranks, reference, name):
     _, got = ranks
-    scale = dict((s[0], s[2]) for s in worker.STEPS)[name].get("scale", 1)
     ref = reference[f"jax_{name}"]
     for o in got:
-        origin = o[f"{name}_origin"]
+        origin = o[f"{name}_out_origin"]
         for key in ("data", "img"):
             blk = o[f"{name}_{key}"]
-            _close(blk, _block(ref[key], origin, blk, scale), what=key)
+            _close(blk, _block(ref[key], origin, blk), what=key)
         _close(o[f"{name}_avg_fft"], np.stack([ref["avg_fft"].real, ref["avg_fft"].imag], -1),
                what="avg_fft")
         for key in ("avg_signal", "roi_trace", "pix_sig", "pix_amp", "pix_ph", "avg_amp",

@@ -19,6 +19,10 @@ cube (``Pipeline(mesh=)``) and its publish, on the CPU.
   after it; (f) the dense extraction's threshold and points equal the
   unsharded port's (also with the cap lowered, so that the joined
   histograms run) and match JAX's; (i) a click reduces nothing;
+* odd trace lengths (63 and 65 samples, beside the even 64): the same
+  spawned runs and checks (a), (b), (c), (e), (f) and (g) on scans of those
+  lengths (``ops/fourier.batch_fft`` pairs each row of an odd length with a
+  zero row, ``ops/intensity`` sums its squares at an aligned stride);
 * in this process: (d) every block's tilt shifts equal the whole grid's;
   (g) a one-rank mesh without a group equals ``Pipeline()`` bit for bit;
   (h) ``set_input`` refuses a foreign block and a whole cube; the owner
@@ -99,13 +103,17 @@ def _spawn(world, workdir, scan, psf):
              dict(np.load(workdir / f"rank{r}.npz"))) for r in range(world)]
 
 
-@pytest.fixture(scope="module")
-def scan_files(tmp_path_factory):
-    d = tmp_path_factory.mktemp("scan")
-    t, cube = synthetic_scan(width=30, height=22, n_time=64)
+def _scan_files(tmp_path_factory, n_time):
+    d = tmp_path_factory.mktemp(f"scan{n_time}")
+    t, cube = synthetic_scan(width=30, height=22, n_time=n_time)
     write_scan_thz(str(d / "scan.thzimg"), t, cube, dx=1.0, dy=1.0)
     np.savez(d / "psf.npz", **synthetic_psf_arrays())
     return str(d / "scan.thzimg"), str(d / "psf.npz")
+
+
+@pytest.fixture(scope="module")
+def scan_files(tmp_path_factory):
+    return _scan_files(tmp_path_factory, 64)
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +133,30 @@ def ranks(request, scan_files, tmp_path_factory):
     return world, _spawn(world, tmp_path_factory.mktemp(f"world{world}"), *scan_files)
 
 
+@pytest.fixture(scope="module", params=[63, 65], ids=["n63", "n65"])
+def odd_scan_files(request, tmp_path_factory):
+    """Scans of an odd trace length, with the PSF."""
+    return _scan_files(tmp_path_factory, request.param)
+
+
+@pytest.fixture(scope="module")
+def odd_whole(odd_scan_files):
+    return finalize_scan(open_scan_host(odd_scan_files[0]), device="cpu")[0]
+
+
+@pytest.fixture(scope="module")
+def odd_reference(odd_scan_files, odd_whole):
+    return worker.drive(Pipeline("cpu"), odd_whole, odd_scan_files[1])
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def odd_ranks(request, odd_scan_files, odd_whole, tmp_path_factory):
+    world = request.param
+    assert odd_whole.n_time % 2 == 1
+    return world, _spawn(world, tmp_path_factory.mktemp(f"odd{odd_whole.n_time}_world{world}"),
+                         *odd_scan_files)
+
+
 def _block(full, origin, like):
     x0, y0 = (int(v) for v in origin)
     return full[x0: x0 + like.shape[0], y0: y0 + like.shape[1]]
@@ -134,6 +166,10 @@ def _block(full, origin, like):
 @pytest.mark.parametrize("step", STEPS[:-2])
 def test_sharded_slots_equal_unsharded(ranks, step):
     """(a) every slot of every rank's block, after each command."""
+    _check_slots(ranks, step)
+
+
+def _check_slots(ranks, step):
     world, got = ranks
     for res, _ in got:
         assert step in res["origins"], (world, res["rank"], step)
@@ -158,6 +194,10 @@ def test_slots_keep_the_mesh_layout(ranks, whole):
 @pytest.mark.parametrize("step", STEPS)
 def test_sharded_publish_equals_unsharded(ranks, reference, step):
     """(b) the published series and the whole image on every rank."""
+    _check_publish(ranks, reference, step)
+
+
+def _check_publish(ranks, reference, step):
     world, got = ranks
     ref = reference[0]
     keys = [k[len("open/"):] for k in ref if k.startswith("open/")]
@@ -197,6 +237,10 @@ def test_sharded_optical_follows_the_series(ranks, step):
 def jax_slider(whole):
     """The JAX ``Pipeline`` on the whole cube at the slider step
     (tests/test_parallel.py's product-executor check)."""
+    return _jax_slider(whole)
+
+
+def _jax_slider(whole):
     p = JaxPipeline(record_timings=False)
     for uuid in worker.FILTERS:
         p.filters[uuid].active = True
@@ -215,6 +259,10 @@ def jax_slider(whole):
 
 def test_sharded_pipeline_matches_jax(ranks, jax_slider):
     """(c) the port's mesh against the JAX Pipeline run unsharded."""
+    _check_jax(ranks, jax_slider)
+
+
+def _check_jax(ranks, jax_slider):
     world, got = ranks
     for res, out in got:
         origin = out["slider/origin"]
@@ -231,6 +279,10 @@ def test_sharded_pipeline_matches_jax(ranks, jax_slider):
 def test_sharded_apply_equals_unsharded(ranks, reference):
     """(e) the Apply through ``update_filter(..., force=True)`` and a
     slider step after it that runs no RL."""
+    _check_apply(ranks, reference)
+
+
+def _check_apply(ranks, reference):
     world, got = ranks
     ref, counts = reference
     scale = np.nanmax(np.abs(ref["apply/data"]))
@@ -246,6 +298,10 @@ def test_sharded_apply_equals_unsharded(ranks, reference):
 @pytest.mark.parametrize("name", ["dense", "dense_low"])
 def test_sharded_dense_extraction_equals_unsharded(ranks, reference, name):
     """(f) the same threshold and the same points in the same order."""
+    _check_dense(ranks, reference, name)
+
+
+def _check_dense(ranks, reference, name):
     world, got = ranks
     ref = reference[0]
     if name == "dense":
@@ -260,12 +316,16 @@ def test_sharded_dense_extraction_equals_unsharded(ranks, reference, name):
 
 def test_dense_extraction_matches_jax(ranks, reference, whole):
     """(f) against JAX's ``extract_instances`` on the same final data."""
+    _check_dense_jax(ranks, reference, whole)
+
+
+def _check_dense_jax(ranks, reference, whole):
     world, got = ranks
     ref = reference[0]
     t = whole.time.numpy()
     want = jvox.extract_instances(
         jnp.asarray(ref["dense/data"]), time_span=float(t[-1] - t[0]), scaling=1,
-        original_dims=(30, 22, 64), valid_grid=(30, 22), **worker.DENSE)
+        original_dims=(30, 22, whole.n_time), valid_grid=(30, 22), **worker.DENSE)
     for _, out in got:
         np.testing.assert_array_equal(out["dense/pos"], want[0])
         np.testing.assert_allclose(out["dense/rgba"], want[1], atol=OPAC_ATOL)
@@ -282,6 +342,72 @@ def test_click_reduces_nothing(ranks, reference):
     assert reference[1]["click_collectives"] == reference[1]["slider_collectives"] == 0
     for res, _ in got:
         assert res["click_collectives"] == 1 and res["slider_collectives"] == 2, res
+
+
+# ------------------------------------------------- odd trace lengths
+def test_odd_length_sharded_slots_equal_unsharded(odd_ranks):
+    """(a) at an odd trace length: every slot after every command."""
+    for step in STEPS[:-2]:
+        _check_slots(odd_ranks, step)
+
+
+def test_odd_length_sharded_publish_equals_unsharded(odd_ranks, odd_reference):
+    """(b) at an odd trace length: every published series after every
+    command."""
+    for step in STEPS:
+        _check_publish(odd_ranks, odd_reference, step)
+
+
+def test_odd_length_sharded_pipeline_matches_jax(odd_ranks, odd_whole):
+    """(c) at an odd trace length, against the JAX Pipeline."""
+    _check_jax(odd_ranks, _jax_slider(odd_whole))
+
+
+def test_odd_length_sharded_apply_and_dense_equal_unsharded(odd_ranks, odd_reference,
+                                                           odd_whole):
+    """(e), (f) at an odd trace length, the dense points also against JAX's."""
+    _check_apply(odd_ranks, odd_reference)
+    for name in ("dense", "dense_low"):
+        _check_dense(odd_ranks, odd_reference, name)
+    _check_dense_jax(odd_ranks, odd_reference, odd_whole)
+
+
+def test_odd_length_one_rank_mesh_equals_pipeline(odd_scan_files, odd_whole, odd_reference):
+    """(g) at an odd trace length."""
+    _check_one_rank(odd_scan_files, odd_whole, odd_reference)
+
+
+@pytest.mark.parametrize("n", [63, 64, 65])
+def test_batch_fft_pairs_odd_rows_with_zero_rows(n):
+    """At an odd length the transform sees each row followed by a zero row
+    (the batch twice as long) and gives the plain transform's values; an
+    even length reaches it as it is. The intensity image sums the squares
+    of each row at either length."""
+    from thz_image_explorer_tpu_torch.ops import fourier
+    from thz_image_explorer_tpu_torch.ops.intensity import intensity_image
+
+    seen = []
+
+    def recording(fn):
+        def run(x, **kw):
+            seen.append(x.clone())
+            return fn(x, **kw)
+        return run
+
+    x = torch.randn(5, 3, n, generator=torch.Generator().manual_seed(n))
+    cube = make_cube((np.arange(n) * 0.05).astype(np.float32), x.numpy(), device="cpu")
+    spec = fourier.batch_fft(recording(torch.fft.rfft), x, cube)
+    back = fourier.batch_fft(recording(torch.fft.irfft), spec, cube, n=n)
+    if n % 2:
+        assert seen[0].shape == (30, n) and seen[1].shape == (30, n // 2 + 1)
+        assert torch.equal(seen[0][0::2], x.reshape(15, n)) and not seen[0][1::2].any()
+        assert torch.equal(seen[1][0::2], spec.reshape(15, -1)) and not seen[1][1::2].any()
+    else:
+        assert seen[0].shape == x.shape and seen[1].shape == spec.shape
+    assert spec.shape == (5, 3, n // 2 + 1) and spec.is_contiguous() and back.shape == x.shape
+    assert torch.equal(spec, torch.fft.rfft(x, dim=-1))
+    torch.testing.assert_close(back, x, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(intensity_image(x), (x * x).sum(-1), atol=1e-5, rtol=1e-6)
 
 
 # ------------------------------------------------------ in this process
@@ -312,6 +438,10 @@ def test_block_tilt_shifts_equal_whole(shape, grid, tilts):
 def test_one_rank_mesh_equals_pipeline(scan_files, whole, reference):
     """(g) a mesh of one rank without a process group: the whole script
     bit for bit, the Apply and the dense extraction included."""
+    _check_one_rank(scan_files, whole, reference)
+
+
+def _check_one_rank(scan_files, whole, reference):
     mesh = pm.Mesh((1, 1))
     assert mesh.group is None
     got, counts = worker.drive(Pipeline("cpu", mesh=mesh), pm.shard_cube(whole, mesh),

@@ -3,7 +3,8 @@
 Started by ``torch.multiprocessing`` with the spawn method, one process a
 rank, joined over gloo on the CPU through a ``file://`` store. Each rank
 opens only its block of the scan file (``parallel.open_scan_sharded``),
-runs the sharded update steps, the sharded Apply (and one cancelled on a
+runs the sharded update steps (each output on the mesh's block of the
+output grid, downscaled or not), the sharded Apply (and one cancelled on a
 single rank), the sharded live view, and writes what it got to
 ``rank<r>.npz`` for the parent to compare with the unsharded port and the
 JAX package. It imports neither ``jax`` nor the JAX package; a failure is
@@ -19,11 +20,14 @@ import traceback
 #: fractions of its size, and the selected pixel as fractions
 ROI_BOXES = ((0.1, 0.5, 0.1, 0.6), (0.5, 1.0, 0.4, 1.0), (0.2, 0.3, 0.7, 0.9))
 PIXEL = (0.55, 0.3)
-#: the steps each rank runs: (name, multiple, StepConfig keywords)
+#: the steps each rank runs: (name, StepConfig keywords); 3 and 7 divide
+#: neither the 30x22 grid nor its 1x2 and 2x2 blocks
 STEPS = (
-    ("all_stages", 1, dict(td_before_active=True, fd_active=True, notch_active=True,
-                          td_after_active=True)),
-    ("scale2", 2, dict(scale=2, fd_active=True, notch_active=True)),
+    ("all_stages", dict(td_before_active=True, fd_active=True, notch_active=True,
+                        td_after_active=True)),
+    ("scale2", dict(scale=2, fd_active=True, notch_active=True)),
+    ("scale3", dict(scale=3, td_before_active=True, fd_active=True, notch_active=True)),
+    ("scale7", dict(scale=7, fd_active=True, td_after_active=True, avg_in_fourier_space=True)),
 )
 DECONV = dict(n_iterations=80, n_filters=6, start_freq=0.25, end_freq=4.0)
 VIEW = dict(max_points=3000, opacity_threshold=0.005, contrast=1.0)
@@ -73,13 +77,14 @@ def _run(rank, world, store, scan, psf, outdir):
         mine = pm.shard_cube(whole, mesh)
         out["gathered_equals_whole"] = np.asarray(torch.equal(
             pm.grid_gather(mine.data, mesh, mine.grid, mine.origin), whole.data))
-        for name, multiple, kw in STEPS:
-            cube, img, md = open_scan_sharded(scan, mesh, device="cpu", multiple=multiple)
+        for name, kw in STEPS:
+            cube, img, md = open_scan_sharded(scan, mesh, device="cpu")
             out[f"{name}_open"] = cube.data.numpy()
             out[f"{name}_open_img"] = img.numpy()
             out[f"{name}_origin"] = np.asarray(cube.origin)
             cfg = StepConfig(**kw)
             gx, gy = cube.grid[0] // cfg.scale, cube.grid[1] // cfg.scale
+            out[f"{name}_out_origin"] = np.asarray(mesh.block(None, (gx, gy))[::2])
             got = lean_update(cube, StepParams(), cfg, torch.as_tensor(roi_masks(gx, gy)),
                               pixel(gx, gy), mesh)
             out.update({f"{name}_{k}": v.numpy() for k, v in got.items()

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from thz_image_explorer_tpu_torch.ops.intensity import intensity_image
+
 
 @dataclasses.dataclass(frozen=True)
 class ScanCube:
@@ -184,4 +186,4 @@ def load_preprocess(data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     image (``io.rs:576-595``). Returns a new tensor; ``data`` is left as
     it is."""
     data = data - data[:, :, :1]
-    return data, torch.sum(data * data, dim=-1)
+    return data, intensity_image(data)

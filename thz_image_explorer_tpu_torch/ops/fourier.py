@@ -37,9 +37,8 @@ TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 #: length 128: up to 2 178 against 4 356 and more). A rank's block of a
 #: sharded cube is padded with zero rows to the whole grid's row count or to
 #: this many, whichever is fewer, so that it takes the whole cube's algorithm
-#: and gets its bits (for an even trace length: rows of an odd one lie at
-#: varying alignments, which cuFFT treats differently too). A whole cube is
-#: never padded.
+#: and gets its bits. A whole cube is never padded. An odd trace length has a
+#: second rule (:func:`batch_fft`).
 MIN_FFT_ROWS = 8192
 
 
@@ -90,19 +89,38 @@ def _abs_angle(spec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def batch_fft(fn, x: torch.Tensor, cube: ScanCube, **kw) -> torch.Tensor:
     """``fn(x, dim=-1, **kw)`` (``torch.fft.rfft`` or ``irfft``) over the
-    rows of ``x`` (X, Y, n), the pixels of ``cube``. On a CUDA tensor of a
-    block of a sharded cube (``cube.grid`` set) the batch is padded with
-    zero rows to ``min(X' * Y', MIN_FFT_ROWS)`` for the whole grid's
-    ``(X', Y')``: at most the whole cube's own batch."""
+    rows of ``x`` (X, Y, n), the pixels of ``cube``, with each row's bits
+    independent of the rows around it:
+
+    * on a CUDA tensor of a block of a sharded cube (``cube.grid`` set) the
+      batch is padded with zero rows to ``min(X' * Y', MIN_FFT_ROWS)`` for
+      the whole grid's ``(X', Y')``: at most the whole cube's own batch;
+    * at an odd trace length every row is followed by a zero row in the
+      batch, on every cube and device. cuFFT transforms the rows of an odd
+      length two at a time (rows 2k and 2k + 1 of the batch as one complex
+      transform, an odd batch's last row alone), so a row's bits depend on
+      the row it is paired with: a block's rows have other neighbours than
+      the whole cube's (``scripts/torch_fft_batch_probe.py``, the variants
+      ``rfft_interleaved`` and ``irfft_interleaved``). Paired with zeros,
+      each row is transformed alike wherever it lies, at the cost of a
+      batch twice as long. An even length takes the plain batch: the
+      single-device path there is as it was."""
     rows = x.shape[0] * x.shape[1]
-    if x.device.type != "cuda" or cube.grid is None:
-        return fn(x, dim=-1, **kw)
-    want = min(cube.grid[0] * cube.grid[1], MIN_FFT_ROWS)
-    if rows >= want or rows == 0:
+    n = kw.get("n", x.shape[-1])
+    want = rows
+    if x.device.type == "cuda" and cube.grid is not None:
+        want = max(rows, min(cube.grid[0] * cube.grid[1], MIN_FFT_ROWS))
+    if rows == 0 or (want == rows and n % 2 == 0):
         return fn(x, dim=-1, **kw)
     flat = x.reshape(rows, x.shape[-1])
-    padded = torch.cat([flat, flat.new_zeros((want - rows, x.shape[-1]))])
-    out = fn(padded, dim=-1, **kw)[:rows]
+    if n % 2 == 0:
+        padded = torch.cat([flat, flat.new_zeros((want - rows, x.shape[-1]))])
+        out = fn(padded, dim=-1, **kw)[:rows]
+    else:
+        pairs = flat.new_zeros((want, 2, x.shape[-1]))
+        pairs[:rows, 0] = flat
+        out = fn(pairs.reshape(2 * want, x.shape[-1]), dim=-1, **kw)
+        out = out.reshape(want, 2, out.shape[-1])[:rows, 0].contiguous()
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 

@@ -10,8 +10,19 @@ import torch
 
 
 def intensity_image(data: torch.Tensor) -> torch.Tensor:
-    """Sum of squares along the time axis."""
-    return torch.sum(data * data, dim=-1)
+    """Sum of squares along the time axis. At an odd trace length the
+    squares are written at a row stride rounded up to 4 floats and summed
+    from there: a CUDA reduction sums a row in an order that depends on the
+    row's 16-byte alignment, and contiguous rows of an odd length lie at
+    every alignment, in a rank's block at others than in the whole cube
+    (``scripts/torch_fft_batch_probe.py``, ``sumsq`` against
+    ``sumsq_aligned``). An even length sums the contiguous rows."""
+    t = data.shape[-1]
+    if t % 2 == 0:
+        return torch.sum(data * data, dim=-1)
+    squares = data.new_zeros((*data.shape[:-1], -(-t // 4) * 4))[..., :t]
+    torch.mul(data, data, out=squares)
+    return torch.sum(squares, dim=-1)
 
 
 def upscaled_intensity_image(data: torch.Tensor, scale: int) -> torch.Tensor:

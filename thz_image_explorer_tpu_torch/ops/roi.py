@@ -3,16 +3,33 @@
 Port of ``thz_image_explorer_tpu/ops/roi.py`` (reference
 ``math_tools.rs:574-661``). Each polygon is rasterized once on the host
 into a boolean mask with the reference's exact rule (the Rust release
-build's wrapping ``u64`` arithmetic, the x/y swap and the vertical flip);
-ROI traces are then a masked mean on the device.
+build's wrapping ``u64`` arithmetic, the x/y swap and the vertical flip)
+by the C function of ``csrc/roi.c``, built with the system C compiler at
+first use (``kernels.load``); :func:`polygon_mask_plain` is the same rule in
+Python, for the tests. ROI traces are then a masked mean on the device.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from thz_image_explorer_tpu_torch import kernels
+
 _M64 = 1 << 64
+
+
+def _rasterizer():
+    """``thz_roi_polygon_mask`` of ``csrc/roi.c`` (built at first use; a
+    failed build raises with the compiler's output)."""
+    fn = kernels.load("roi").thz_roi_polygon_mask
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+                   ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint64,
+                   ctypes.POINTER(ctypes.c_uint8)]
+    return fn
 
 
 def _point_in_polygon_py(x: int, y: int, poly: list[tuple[int, int]]) -> bool:
@@ -35,15 +52,35 @@ def _point_in_polygon_py(x: int, y: int, poly: list[tuple[int, int]]) -> bool:
 
 def polygon_mask(polygon: list[tuple[int, int]], shape: tuple[int, int],
                  scaling: int = 1) -> np.ndarray:
-    """Boolean mask over the data grid for a polygon ROI.
+    """Boolean mask over the data grid for a polygon ROI, by the C
+    rasterizer.
 
     ``shape`` is ``data.shape[:2]``; ``mask[y_size-1-y, x]`` is set for
     in-polygon pixels, reproducing ``average_polygon_roi``'s swapped and
     flipped indexing (``math_tools.rs:611-648``). Coordinates are first
     wrapped to u64 (a vertex dragged past the image edge wraps to ~2^64 in
-    the Rust release build, so the clamp below pins it to size-1) and
-    divided by ``scaling`` with integer division (``math_tools.rs:604-609``).
-    """
+    the Rust release build, so the clamp to the grid pins it to size-1) and
+    divided by ``scaling`` with integer division (``math_tools.rs:604-609``);
+    a ``scaling`` of 0 gives an empty mask."""
+    shape0, shape1 = int(shape[0]), int(shape[1])
+    mask = np.zeros((shape0, shape1), np.uint8)
+    n = len(polygon)
+    if n:
+        px = np.array([int(x) % _M64 for x, _ in polygon], np.uint64)
+        py = np.array([int(y) % _M64 for _, y in polygon], np.uint64)
+        u64 = ctypes.POINTER(ctypes.c_uint64)
+        count = _rasterizer()(px.ctypes.data_as(u64), py.ctypes.data_as(u64), n, shape0, shape1,
+                              int(scaling) % _M64,
+                              mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        if count < 0:
+            raise MemoryError("the ROI rasterizer could not allocate its vertex arrays")
+    return mask.view(bool)
+
+
+def polygon_mask_plain(polygon: list[tuple[int, int]], shape: tuple[int, int],
+                       scaling: int = 1) -> np.ndarray:
+    """:func:`polygon_mask` in Python: the plain version of the C
+    rasterizer, for the tests."""
     shape0, shape1 = int(shape[0]), int(shape[1])
     mask = np.zeros((shape0, shape1), bool)
     if not polygon or shape0 == 0 or shape1 == 0 or int(scaling) == 0:
@@ -74,6 +111,13 @@ def masked_sum_stack(arr: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     ranks' sums before dividing by the whole masks' counts."""
     x, y, t = arr.shape
     return masks.reshape(masks.shape[0], x * y).to(arr.dtype) @ arr.reshape(x * y, t)
+
+
+def masked_mean_trace(data: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """One ROI's mean trace: ``(X, Y)`` mask x ``(X, Y, T)`` array ->
+    ``(T,)``, the one-mask case of :func:`masked_mean_stack` (zeros for an
+    empty mask)."""
+    return masked_mean_stack(data, mask[None])[0]
 
 
 def masked_mean_stack(arr: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:

@@ -53,12 +53,14 @@ def scale_cube(cube: ScanCube, scale: int, valid_wh: Optional[tuple[int, int]] =
     grid (or the valid region ``valid_wh``) would collapse to nothing
     (``math_tools.rs:244-256``).
 
-    Without a ``mesh`` a block of a sharded cube is downscaled on its own:
-    it must start on a multiple of the factor (``parallel.step`` checks
-    that). With one, ``cube`` is this rank's :meth:`Mesh.block` of its grid
-    and the result is its block of the downscaled grid (module docstring)."""
+    With a ``mesh``, ``cube`` is this rank's :meth:`Mesh.block` of its grid
+    and the result is its block of the downscaled grid (module docstring);
+    a block of a sharded cube without its mesh raises ``ValueError``."""
     if scale <= 1:
         return cube
+    if mesh is None and cube.grid is not None:
+        raise ValueError("a block of a sharded cube is downscaled with its mesh: "
+                         "scale_cube(..., mesh=)")
     gx, gy = cube.grid_wh
     if gx // scale == 0 or gy // scale == 0:
         return cube
@@ -68,8 +70,7 @@ def scale_cube(cube: ScanCube, scale: int, valid_wh: Optional[tuple[int, int]] =
     out_grid = (gx // scale, gy // scale)
     if mesh is None:
         fields = {name: _block_mean(getattr(cube, name), scale) for name in FIELDS}
-        origin = (cube.origin[0] // scale, cube.origin[1] // scale)
-        grid = None if cube.grid is None else out_grid
+        origin, grid = (0, 0), None
     else:
         sources, (ox0, _, oy0, _) = _sources(cube, scale, mesh, out_grid)
         fields = {name: _block_mean(src, scale) for name, src in sources.items()}

@@ -68,37 +68,35 @@ class Mesh:
             raise ValueError(f"rank {r} outside a mesh of {self.world}")
         return r // self.shape[1], r % self.shape[1]
 
-    def block(self, rank: Optional[int], grid: tuple[int, int],
-              multiple: int = 1) -> tuple[int, int, int, int]:
+    def block(self, rank: Optional[int], grid: tuple[int, int]) -> tuple[int, int, int, int]:
         """The pixels ``[x0, x1) x [y0, y1)`` of ``rank`` (this one for
-        None) on an ``(X, Y)`` grid: blocks of ``ceil(X / a)`` rows rounded
-        up to a multiple of ``multiple`` (so a downscale by ``multiple``
-        stays inside each block), the last one shorter. Raises where a
-        rank would get fewer than ``multiple`` rows or columns."""
+        None) on an ``(X, Y)`` grid: blocks of ``ceil(X / a)`` rows, the
+        last one shorter. Every grid of a sharded cube, a downscaled one
+        too, is laid out this way (``ops/scaling``). Raises where a rank
+        would get no rows or columns."""
         i, j = self.coords(rank)
-        x0, x1 = _span(grid[0], self.shape[0], i, multiple)
-        y0, y1 = _span(grid[1], self.shape[1], j, multiple)
-        if x1 - x0 < multiple or y1 - y0 < multiple:
+        x0, x1 = _span(grid[0], self.shape[0], i)
+        y0, y1 = _span(grid[1], self.shape[1], j)
+        if x1 <= x0 or y1 <= y0:
             raise ValueError(f"a {grid[0]}x{grid[1]} grid leaves rank {self.coords(rank)} of a "
-                             f"{self.shape[0]}x{self.shape[1]} mesh fewer than {multiple} "
-                             "rows or columns")
+                             f"{self.shape[0]}x{self.shape[1]} mesh no rows or columns")
         return x0, x1, y0, y1
 
-    def owner(self, pixel, grid: tuple[int, int], multiple: int = 1) -> int:
+    def owner(self, pixel, grid: tuple[int, int]) -> int:
         """The rank whose :meth:`block` of ``grid`` holds the global
         ``pixel`` (x, y); raises for a pixel outside the grid."""
         x, y = int(pixel[0]), int(pixel[1])
         if not (0 <= x < grid[0] and 0 <= y < grid[1]):
             raise ValueError(f"pixel {(x, y)} outside a {grid[0]}x{grid[1]} grid")
         for r in range(self.world):
-            x0, x1, y0, y1 = self.block(r, grid, multiple)
+            x0, x1, y0, y1 = self.block(r, grid)
             if x0 <= x < x1 and y0 <= y < y1:
                 return r
         raise AssertionError("the blocks do not tile the grid")
 
 
-def _span(n: int, parts: int, k: int, multiple: int) -> tuple[int, int]:
-    size = -(-(-(-n // parts)) // multiple) * multiple
+def _span(n: int, parts: int, k: int) -> tuple[int, int]:
+    size = -(-n // parts)
     return min(k * size, n), min((k + 1) * size, n)
 
 
@@ -143,13 +141,12 @@ def cube_sharding() -> dict[str, str]:
     return {n: "split" if n in SPLIT_FIELDS else "replicated" for n in names}
 
 
-def shard_cube(cube: ScanCube, mesh: Mesh, rank: Optional[int] = None,
-               multiple: int = 1) -> ScanCube:
+def shard_cube(cube: ScanCube, mesh: Mesh, rank: Optional[int] = None) -> ScanCube:
     """``rank``'s block (this process's for None) of a whole cube: the
     split fields cut to :meth:`Mesh.block`, the others shared, the global
     ``valid_wh`` kept, and the block's ``origin`` and ``grid`` recorded."""
     grid = cube.grid_wh
-    x0, x1, y0, y1 = mesh.block(rank, grid, multiple)
+    x0, x1, y0, y1 = mesh.block(rank, grid)
     ox, oy = cube.origin
     return cube.replace(
         **{name: getattr(cube, name)[x0:x1, y0:y1].contiguous() for name in SPLIT_FIELDS},
@@ -159,7 +156,7 @@ def shard_cube(cube: ScanCube, mesh: Mesh, rank: Optional[int] = None,
 def check_rank_block(cube: ScanCube, mesh: Mesh) -> None:
     """Raise ``ValueError`` unless ``cube`` is this rank's :meth:`Mesh.block`
     of its grid (``origin`` and extent), as :func:`shard_cube` and the
-    sharded opens cut it at the default multiple. A whole cube
+    sharded opens cut it. A whole cube
     (``grid`` None) passes only on a mesh of one rank."""
     if cube.grid is None and mesh.world > 1:
         raise ValueError(f"a whole cube on a mesh of {mesh.world} ranks: give this rank's block "
@@ -171,18 +168,6 @@ def check_rank_block(cube: ScanCube, mesh: Mesh) -> None:
         raise ValueError(f"the block [{have[0]}, {have[1]}) x [{have[2]}, {have[3]}) of a "
                          f"{cube.grid_wh[0]}x{cube.grid_wh[1]} grid is not rank {mesh.rank}'s "
                          f"[{x0}, {x1}) x [{y0}, {y1})")
-
-
-def check_scale_block(cube: ScanCube, scale: int) -> None:
-    """A block downscaled on its own (``parallel.step``) must not let a
-    downscaled pixel straddle two ranks' blocks."""
-    if scale <= 1 or cube.grid is None:
-        return
-    for o, n, g in ((cube.origin[0], cube.width, cube.grid[0]),
-                    (cube.origin[1], cube.height, cube.grid[1])):
-        if o % scale or (o + n < g and n % scale):
-            raise ValueError(f"a block at {cube.origin} of {cube.width}x{cube.height} is not cut "
-                             f"on multiples of the scale {scale}: shard with multiple={scale}")
 
 
 def block_slice(arr: torch.Tensor, cube: ScanCube) -> torch.Tensor:

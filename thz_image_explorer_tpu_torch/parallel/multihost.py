@@ -63,8 +63,8 @@ def _locate_datasets(group) -> tuple[Optional[str], Optional[str]]:
     return time_name, data_name
 
 
-def open_scan_sharded(path: str, mesh: Mesh, rank: Optional[int] = None, device=None,
-                      multiple: int = 1) -> tuple[ScanCube, torch.Tensor, DotthzMetadata]:
+def open_scan_sharded(path: str, mesh: Mesh, rank: Optional[int] = None, device=None
+                      ) -> tuple[ScanCube, torch.Tensor, DotthzMetadata]:
     """Open ``rank``'s block (this process's for None) of the scan at
     ``path``: ``(cube, intensity image, metadata)``, the cube and image of
     the block (see :func:`open_arrays_sharded`). ``device`` None means the
@@ -82,19 +82,19 @@ def open_scan_sharded(path: str, mesh: Mesh, rank: Optional[int] = None, device=
         if time_name is None or data_name is None:
             raise ValueError(_REFUSE_PULSE.format(path))
         return open_arrays_sharded(group[time_name][()], group[data_name], mesh, rank,
-                                   metadata, device, multiple, where=path)
+                                   metadata, device, where=path)
 
 
 def open_arrays_sharded(time, dataset, mesh: Mesh, rank: Optional[int] = None,
                         metadata: Optional[DotthzMetadata] = None, device=None,
-                        multiple: int = 1, where: str = "arrays"
+                        where: str = "arrays"
                         ) -> tuple[ScanCube, torch.Tensor, DotthzMetadata]:
     """``rank``'s block of a scan given as a (T,) time axis and a raw
     (X, Y, T) ``dataset`` that supports numpy slicing (an h5py dataset, a
     ``np.memmap``, an array): ``(cube, intensity image, metadata)``.
 
-    Reads ``dataset[x0:x1, y0:y1, :]`` of :meth:`Mesh.block` at ``multiple``
-    and nothing else (the whole dataset only when the metadata reshape it);
+    Reads ``dataset[x0:x1, y0:y1, :]`` of :meth:`Mesh.block` and nothing
+    else (the whole dataset only when the metadata reshape it);
     the block's DC offset is removed and its intensity image computed on
     ``device`` (None means the card). The cube keeps the scan's
     ``valid_wh`` and records its ``origin`` and ``grid``."""
@@ -112,7 +112,7 @@ def open_arrays_sharded(time, dataset, mesh: Mesh, rank: Optional[int] = None,
         # impossible, so every rank reads the whole cube (rare)
         dataset = np.asarray(dataset[()], np.float32).reshape(width, height, n_time)
         vw, vh = width, height
-    x0, x1, y0, y1 = mesh.block(rank, (vw, vh), multiple)
+    x0, x1, y0, y1 = mesh.block(rank, (vw, vh))
     block = np.array(dataset[x0:x1, y0:y1, :], np.float32)
     data, img = load_preprocess(torch.as_tensor(block, device=device))
     cube = make_cube(np.asarray(time, np.float32), data, dx=_md(metadata, "dx [mm]", float),

@@ -9,12 +9,16 @@ returns only what an interactive update publishes, with the spectral means
 from one pass of the spectral-reduction kernel (``ops/specred``) over the
 raw spectrum.
 
-With a ``mesh`` (``parallel.mesh``), ``cube`` is this rank's block: every
-per-pixel output stays on the block, and the cross-pixel sums are joined
-with one :func:`~thz_image_explorer_tpu_torch.parallel.mesh.all_sum` before
-they are divided by the global valid-pixel count (the phase unwrap is
-finished after the sum: it is linear). Without one it is the single-device
-function; a mesh of one rank gives the same values.
+With a ``mesh`` (``parallel.mesh``), ``cube`` is this rank's
+:meth:`~thz_image_explorer_tpu_torch.parallel.mesh.Mesh.block`: every
+per-pixel output stays on the rank, on the mesh's block of the output grid
+(after a downscale, the layout of ``Pipeline(mesh=)``: ``ops/scaling``
+brings the source rows a downscaled block lacks), and the cross-pixel sums
+are joined with one :func:`~thz_image_explorer_tpu_torch.parallel.mesh.all_sum`
+before they are divided by the global valid-pixel count (the phase unwrap is
+finished after the sum: it is linear). The FFTs go through
+``ops/fourier.batch_fft``, as the ``Pipeline``'s do. Without a mesh it is
+the single-device function; a mesh of one rank gives the same values.
 
 Not ported: the XLA variants of the JAX ``StepConfig`` (``lean_phases``,
 ``specred``, ``fold_fd``, ``wide_spec``), their ``_resolve_cfg`` and
@@ -34,18 +38,12 @@ import torch
 from thz_image_explorer_tpu_torch.assets.water_lines import WATER_LINES_THZ
 from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.ops import bandpass as bp
-from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft, unwrap
+from thz_image_explorer_tpu_torch.ops.fourier import batch_fft, forward_fft, inverse_fft, unwrap
 from thz_image_explorer_tpu_torch.ops.intensity import intensity_image
 from thz_image_explorer_tpu_torch.ops.scaling import scale_cube
 from thz_image_explorer_tpu_torch.ops.specred import lean_spectral_finish, lean_spectral_sums
 from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
-from thz_image_explorer_tpu_torch.parallel.mesh import (
-    Mesh,
-    all_sum,
-    block_slice,
-    check_scale_block,
-    valid_mask,
-)
+from thz_image_explorer_tpu_torch.parallel.mesh import Mesh, all_sum, block_slice, valid_mask
 
 
 class StepConfig(NamedTuple):
@@ -82,11 +80,11 @@ class StepParams:
         default_factory=lambda: np.asarray(WATER_LINES_THZ, np.float32))
 
 
-def _spectrum(cube: ScanCube, params: StepParams, cfg: StepConfig) -> tuple[ScanCube, torch.Tensor]:
+def _spectrum(cube: ScanCube, params: StepParams, cfg: StepConfig,
+              mesh: Optional[Mesh] = None) -> tuple[ScanCube, torch.Tensor]:
     """Scale, TD band-pass, window: ``(cube, window)`` with the windowed
     traces not yet multiplied in."""
-    check_scale_block(cube, cfg.scale)
-    c = scale_cube(cube, cfg.scale, valid_wh=cube.valid_wh)
+    c = scale_cube(cube, cfg.scale, valid_wh=cube.valid_wh, mesh=mesh)
     if cfg.td_before_active:
         c = c.replace(data=bp.td_bandpass(c.data, c.time, params.td_before_low,
                                           params.td_before_high, params.td_before_width))
@@ -122,7 +120,7 @@ def interactive_update(cube: ScanCube, params: StepParams, cfg: StepConfig,
     ``cube_out`` holds the filtered traces, spectra, amplitudes and
     unwrapped phases (of this rank's block with a mesh) and the pixel
     means over the whole grid."""
-    c, _ = _spectrum(cube, params, cfg)
+    c, _ = _spectrum(cube, params, cfg, mesh)
     c = forward_fft(c, cfg.window_type, params.window_low, params.window_high)
     if cfg.fd_active:
         fft, amps = bp.fd_bandpass(c.fft, c.amplitudes, c.freq, params.fd_low, params.fd_high,
@@ -150,10 +148,11 @@ def lean_update(cube: ScanCube, params: StepParams, cfg: StepConfig, masks: torc
     ``avg_amp``, ``avg_ph``, ``roi_amp``, ``roi_ph`` (spectral means from
     the raw spectrum, the FD weights factored out), as the JAX
     ``lean_update``. One ``all_sum`` joins every cross-pixel sum."""
-    c, window = _spectrum(cube, params, cfg)
-    spec = torch.fft.rfft(c.data * window, dim=-1)
+    c, window = _spectrum(cube, params, cfg, mesh)
+    spec = batch_fft(torch.fft.rfft, c.data * window, c)
     wvec = _fd_weights(c.freq, params, cfg)
-    data = _finish_data(torch.fft.irfft(spec * wvec, n=c.n_time, dim=-1), c.time, params, cfg)
+    data = _finish_data(batch_fft(torch.fft.irfft, spec * wvec, c, n=c.n_time), c.time, params,
+                        cfg)
 
     block_masks = block_slice(masks, c).to(torch.float32).contiguous()
     r, t, nf = masks.shape[0], c.n_time, c.n_freq

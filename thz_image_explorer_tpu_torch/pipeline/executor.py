@@ -328,6 +328,16 @@ class Pipeline:
         """Calculate All: the whole chain, the deconvolution included."""
         self.run_from(1, force_all=True)
 
+    def materialize_output(self) -> Optional[ScanCube]:
+        """The final slot with its time-domain data and its spectra
+        (``fft``, ``amplitudes``, ``phases``), for inspection (the
+        ``show_data`` hook, export). Every slot of this executor holds them
+        (each stage materializes its output; there is no lean program that
+        drops the final spectra, as the JAX package's has), so this returns
+        the slot itself: nothing is recomputed or launched, no stage's ms
+        changes, and the deconvolution is not run again."""
+        return self.output
+
     def current_image(self) -> Optional[np.ndarray]:
         """Intensity image of the final stage, block-upscaled to the
         original grid when downscaled (``data_thread.rs:1242-1308``) and

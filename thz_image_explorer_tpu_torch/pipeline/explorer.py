@@ -34,6 +34,7 @@ from thz_image_explorer_tpu_torch.ops.voxel import extract_instances
 from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
 from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
 from thz_image_explorer_tpu_torch.pipeline.publish import Publisher
+from thz_image_explorer_tpu_torch.pipeline.stage import FilterStage
 
 log = logging.getLogger(__name__)
 
@@ -548,8 +549,24 @@ class Explorer:
     # ------------------------------------------------------- selection
     def set_selected_pixel(self, x: int, y: int):
         """A pixel click: re-publish the selection only
-        (``data_thread.rs:853-903``)."""
+        (``data_thread.rs:853-903``). Stages whose class overrides
+        ``FilterStage.show_data`` (no built-in one does) first get the final
+        slot (``Pipeline.materialize_output``) and the pixel in its
+        downscaled coordinates, clamped to its valid region
+        (``data_thread.rs:858``); with none, a click does nothing more."""
         self.pixel_selected = [max(int(x), 0), max(int(y), 0)]
+        hooks = [f for f in self.pipeline.filters.values()
+                 if type(f).show_data is not FilterStage.show_data]
+        if hooks:
+            self._ensure_open_finalized()
+            out = self.pipeline.materialize_output()
+            if out is not None:
+                s = max(out.scaling, 1)
+                vw, vh = self.pipeline.valid_for(out) or (out.width, out.height)
+                pixel = (min(self.pixel_selected[0] // s, vw - 1),
+                         min(self.pixel_selected[1] // s, vh - 1))
+                for f in hooks:
+                    f.show_data(out, pixel)
         self.publish()
 
     # ------------------------------------------------------- ROIs

@@ -82,6 +82,14 @@ class FilterStage:
         axis back from the device."""
         return time
 
+    def show_data(self, cube: ScanCube, pixel: tuple[int, int]) -> None:
+        """Update host-side preview caches for the UI (the reference's
+        ``#[static_field]`` copy-back, ``data_thread.rs:1322-1334``). A
+        no-op here: ``Explorer.set_selected_pixel`` calls it only on stages
+        whose class overrides it, with the final slot (data and spectra,
+        ``Pipeline.materialize_output``) and the pixel in that slot's
+        downscaled coordinates."""
+
     def param_owner(self, key: str) -> Optional[object]:
         """The object that holds parameter ``key``: the stage's ``params``
         dataclass when it has that field (the deconvolution's), else the
@@ -148,6 +156,11 @@ def _slug(name: str) -> str:
             out.append("_")
         out.append(ch.lower())
     return "".join(out)
+
+
+def registered_filters() -> dict[str, type]:
+    """A copy of the registry: uuid -> stage class."""
+    return dict(_REGISTRY)
 
 
 def instantiate_filters() -> dict[str, FilterStage]:

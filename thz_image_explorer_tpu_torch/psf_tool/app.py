@@ -14,8 +14,6 @@ receives it as an argument.
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
 import threading
 from typing import Callable, Optional
 
@@ -38,6 +36,7 @@ from thz_image_explorer_tpu_torch.psf_tool.fitting import (
     fit_beam_widths,
     fit_mean_beam,
 )
+from thz_image_explorer_tpu_torch.utils.settings import PsfToolState
 
 
 @dataclasses.dataclass
@@ -213,47 +212,6 @@ def compute_psf(
         warnings.append(w)
     return PsfComputeResult(filters=taps, center_frequencies=centers, x=x_res, y=y_res,
                             curve_fits=curve_fits, warnings=warnings)
-
-
-@dataclasses.dataclass
-class PsfToolState:
-    """The tool's persisted parameters (``psf_tool/app.rs:33-69``), a JSON
-    file in the directory the caller gives."""
-
-    knife_edge_x_path: str = ""
-    knife_edge_y_path: str = ""
-    n_filters: int = 20
-    low_cut: float = 0.1
-    high_cut: float = 10.0
-    start_freq: float = 0.15
-    end_freq: float = 5.0
-    win_width: float = 0.5
-    frequency_spacing: str = "log"
-    w_max: float = 30.0
-    use_monotonicity_constraint: bool = True
-
-    FILE = "psf_tool_state.json"
-
-    def save(self, directory: str):
-        """Write a temporary file and rename it: concurrent savers leave
-        one whole file."""
-        path = os.path.join(directory, self.FILE)
-        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
-        with open(tmp, "w") as f:
-            json.dump(dataclasses.asdict(self), f, indent=1)
-        os.replace(tmp, path)
-
-    @classmethod
-    def load(cls, directory: str) -> "PsfToolState":
-        try:
-            with open(os.path.join(directory, cls.FILE)) as f:
-                d = json.load(f)
-        except (OSError, json.JSONDecodeError):
-            return cls()
-        if not isinstance(d, dict):
-            return cls()
-        known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 class PsfToolApp:

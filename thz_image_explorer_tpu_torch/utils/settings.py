@@ -7,8 +7,7 @@ the full serialized PSF — loaded at start and autosaved on exit
 (``main.rs:144-161``, ``gui/application.rs:134-217``), and the PSF tool's
 JSON state at ``<config>/thz_image_explorer/psf_tool_state.json``
 (``psf_tool/app.rs:33-69``). Stored as JSON under
-``<XDG_CONFIG_HOME or ~/.config>/thz_image_explorer_tpu_torch/``. The
-PSF tool's state class is the one of ``psf_tool/app.py``.
+``<XDG_CONFIG_HOME or ~/.config>/thz_image_explorer_tpu_torch/``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,6 @@ from typing import Optional
 import numpy as np
 
 from thz_image_explorer_tpu_torch.models.psf import PSF, CubicSplineCoeffs, HybridFit
-from thz_image_explorer_tpu_torch.psf_tool.app import PsfToolState  # noqa: F401
 
 
 def _atomic_json_dump(obj, path: str):
@@ -147,3 +145,39 @@ class Settings:
             except (KeyError, TypeError, ValueError):
                 out.psf = None
         return out
+
+
+@dataclasses.dataclass
+class PsfToolState:
+    """The PSF tool's persisted parameters (``psf_tool/app.rs:33-69``), a
+    JSON file in the directory the caller gives (``psf_tool/app.py``'s
+    ``PsfToolApp(persist_dir=)``)."""
+
+    knife_edge_x_path: str = ""
+    knife_edge_y_path: str = ""
+    n_filters: int = 20
+    low_cut: float = 0.1
+    high_cut: float = 10.0
+    start_freq: float = 0.15
+    end_freq: float = 5.0
+    win_width: float = 0.5
+    frequency_spacing: str = "log"
+    w_max: float = 30.0
+    use_monotonicity_constraint: bool = True
+
+    FILE = "psf_tool_state.json"
+
+    def save(self, directory: str):
+        _atomic_json_dump(dataclasses.asdict(self), os.path.join(directory, self.FILE))
+
+    @classmethod
+    def load(cls, directory: str) -> "PsfToolState":
+        try:
+            with open(os.path.join(directory, cls.FILE)) as f:
+                d = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return cls()
+        if not isinstance(d, dict):
+            return cls()
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
