@@ -37,7 +37,9 @@ sharing the card over gloo against the one-rank results, 4 ranks at
 512x512x1024, and a sharded step downscaled by 3 against the single
 device); and the incremental ``Pipeline`` with its publish on each rank's
 block (``pipeline_mesh``: open, slider steps, clicks, a downscale by 3,
-tilt, the Apply and a dense 3-D extraction, then the same at an odd trace
+tilt to T = 1488 and then to lengths of 2 mod 4 (1606, and 1610 on the
+downscaled blocks) with slider steps, clicks and a dense extraction there,
+the Apply and a dense 3-D extraction, then the same at an odd trace
 length, 1023; one rank over NCCL in lockstep with the single-device
 ``Pipeline``, bit for bit, and 2 and 4 ranks over gloo against it, run by
 the multi-device phase's rank processes after their own work). The main
@@ -2603,6 +2605,19 @@ _PM_FILTERS = ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_
 _PM_CLICKS = 10
 _PM_SCALE = 3
 _PM_TILT = (2.0, 2.0)
+#: the pass at a trace length of 2 mod 4 (its commands' names start with
+#: ``tilt32``): the tilt to (3°, 2°) gives T = 1606, F = 804 at scale 1
+#: (specred's two column chunks, the envelope's plain route); at scale 3 it
+#: gives 1600, so there the pass tilts to (3°, 2.1°), T = 1610 on the 66x66
+#: grid, whose 33-row blocks hold rows at other 16-byte alignments than the
+#: whole grid's
+_PM_TILT_2MOD4 = (3.0, 2.0)
+_PM_TILT_2MOD4_SCALE3 = (3.0, 2.1)
+_PM_LENGTHS_2MOD4 = {"tilt32": 1606, "tilt32_tilt_scale3": 1610}
+#: the commands whose collectives are metered where they run (a
+#: ``CollectiveMeter`` around each): the 2 mod 4 pass's slider steps and
+#: clicks
+_PM_METERED = ("tilt32_slider", "tilt32_click")
 _PM_OPTICAL = dict(ref_mode="roi", ref_idx=0, samp_mode="pixel", thickness=1e-3)
 _PM_SLOT_FIELDS = ("data", "fft", "amplitudes", "phases")
 #: published series that are one pixel's rows, axes or the whole image: bit
@@ -2676,11 +2691,14 @@ def pm_click(xy):
 
 def pm_script(seed, short=False):
     """The commands of the phase, as ``(name, kind, command)``; each command
-    is followed by a publish. Open; 5 slider steps (window low 1.05-1.25);
-    10 clicks; a downscale to 3 and back to 1; tilt to (2°, 2°) and off;
-    the Apply (default parameters, the synthetic PSF) and a repeat Apply;
-    a slider step after them. ``short`` (the odd-length pass): open, 3
-    slider steps, 5 clicks, the downscale to 3 and back."""
+    but a dense extraction (kind "dense", command None) is followed by a
+    publish. Open; 5 slider steps (window low 1.05-1.25); 10 clicks; a
+    downscale to 3 and back to 1; tilt to (2°, 2°); the pass at a trace
+    length of 2 mod 4 (:func:`pm_script_2mod4`); tilt off; the Apply
+    (default parameters, the synthetic PSF) and a repeat Apply; a slider
+    step after them; a dense extraction. ``short`` (the odd-length pass):
+    open, 3 slider steps, 5 clicks, the downscale to 3 and back, a dense
+    extraction."""
     rng = np.random.default_rng(seed)
 
     def scale(f):
@@ -2689,10 +2707,10 @@ def pm_script(seed, short=False):
             s.p.run_from(s.p.scaling_index)
         return run
 
-    def tilt(on):
+    def tilt(on, angles=_PM_TILT):
         def run(s):
             stage = s.p.filters[TILT]
-            stage.active, (stage.tilt_x, stage.tilt_y) = on, _PM_TILT
+            stage.active, (stage.tilt_x, stage.tilt_y) = on, angles
             s.p.update_filter(TILT)
         return run
 
@@ -2707,12 +2725,29 @@ def pm_script(seed, short=False):
     steps += [(f"click{i + 1}", "click", pm_click((int(x), int(y))))
               for i, (x, y) in enumerate(rng.integers(0, 200, size=(n_clicks, 2)))]
     steps += [("downscale3", "downscale", scale(_PM_SCALE)), ("downscale1", "downscale", scale(1))]
-    if short:
-        return steps
-    steps += [("tilt", "tilt", tilt(True)), ("tilt_off", "tilt", tilt(False)),
-              ("apply", "apply", apply), ("apply_again", "apply", apply),
-              ("slider_after_apply", "slider_after_apply", pm_window(1.30))]
-    return steps
+    if not short:
+        steps += [("tilt", "tilt", tilt(True))]
+        steps += pm_script_2mod4(rng, tilt, scale)
+        steps += [("tilt_off", "tilt", tilt(False)),
+                  ("apply", "apply", apply), ("apply_again", "apply", apply),
+                  ("slider_after_apply", "slider_after_apply", pm_window(1.30))]
+    return steps + [("dense", "dense", None)]
+
+
+def pm_script_2mod4(rng, tilt, scale):
+    """The pass at a trace length of 2 mod 4, after the (2°, 2°) tilt: tilt
+    to (3°, 2°) (T = 1606); 3 slider steps (window low 1.10-1.20); 5
+    clicks; a dense extraction; a downscale to 3 and there a tilt to (3°,
+    2.1°) (T = 1610 on the downscaled blocks); back to scale 1 (T = 1616).
+    The names start with ``tilt32``."""
+    steps = [("tilt32", "tilt", tilt(True, _PM_TILT_2MOD4))]
+    steps += [(f"tilt32_slider{i + 1}", "slider", pm_window(1.10 + 0.05 * i)) for i in range(3)]
+    steps += [(f"tilt32_click{i + 1}", "click", pm_click((int(x), int(y))))
+              for i, (x, y) in enumerate(rng.integers(0, 200, size=(5, 2)))]
+    return steps + [("tilt32_dense", "dense", None),
+                    ("tilt32_downscale3", "downscale", scale(_PM_SCALE)),
+                    ("tilt32_tilt_scale3", "tilt", tilt(True, _PM_TILT_2MOD4_SCALE3)),
+                    ("tilt32_downscale1", "downscale", scale(1))]
 
 
 def pm_run(client, step):
@@ -2787,11 +2822,6 @@ def pm_measure(client, device, label):
     (``CollectiveMeter``: ``all_reduce`` with a synchronize on each side),
     and this rank's specred and envelope calls against their plain versions
     on its block."""
-    import torch
-
-    from thz_image_explorer_tpu_torch.ops import voxel
-    from thz_image_explorer_tpu_torch.parallel.mesh import block_slice
-
     out = {}
     steps = [("s", "slider", pm_window(1.30 + 0.05 * k)) for k in range(1, 4)]
     clicks = [("c", "click", pm_click((40 + k, 150 - k))) for k in range(3)]
@@ -2801,19 +2831,79 @@ def pm_measure(client, device, label):
         out[kind] = dict(ms=ms, collective_ms=m.ms / 3, collective_bytes=m.bytes // 3,
                          collective_calls=m.calls // 3,
                          collective_share=m.ms / 3 / statistics.median(ms))
-    if torch.device(device).type == "cuda":
-        p = client.p
-        spec = p.slots[p.fft_index].fft
-        n = spec.shape[0] * spec.shape[1]
-        final = p.output
-        whole_masks = client._masks[(final.grid_wh, final.scaling)]
-        stack = torch.cat([torch.ones((1, n), device=device),
-                           block_slice(whole_masks, final).reshape(-1, n)])
-        out["specred_max_abs_err"] = check_specred(spec.reshape(n, -1).contiguous(), stack, False,
-                                                   f"{label} block")[0]
-        flat = final.data.reshape(n, -1).contiguous()
-        out["envelope_max_abs_err"] = check_envelope(flat, voxel.gaussian_kernel1d(3.0, 9), 2.0,
-                                                     _VIEW_OPACITY_THRESHOLD, f"{label} block")[0]
+    out.update(pm_kernel_checks(client, device, label))
+    return out
+
+
+def pm_kernel_inputs(client, device):
+    """The inputs specred and the envelope take on this rank's block in the
+    publish and the dense extraction: the FFT slot's spectrum (N, F), the
+    valid mask and the 4 ROI masks (5, N), the final traces (N, T)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.parallel.mesh import block_slice
+
+    p = client.p
+    spec = p.slots[p.fft_index].fft
+    n = spec.shape[0] * spec.shape[1]
+    final = p.output
+    whole_masks = client._masks[(final.grid_wh, final.scaling)]
+    stack = torch.cat([torch.ones((1, n), device=device),
+                       block_slice(whole_masks, final).reshape(-1, n)])
+    return spec.reshape(n, -1).contiguous(), stack, final.data.reshape(n, -1).contiguous()
+
+
+def pm_kernel_checks(client, device, label):
+    """This rank's specred and envelope calls against their plain versions
+    on its block (on the card; nothing on the CPU)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    if torch.device(device).type != "cuda":
+        return {}
+    spec, stack, flat = pm_kernel_inputs(client, device)
+    return dict(
+        shape=[*spec.shape, flat.shape[1]],
+        specred_max_abs_err=check_specred(spec, stack, False, f"{label} block")[0],
+        envelope_max_abs_err=check_envelope(flat, voxel.gaussian_kernel1d(3.0, 9), 2.0,
+                                            _VIEW_OPACITY_THRESHOLD, f"{label} block")[0])
+
+
+def pm_kernels_at_blocks(client, device, name):
+    """Device time (behind a spin) of specred and the envelope on the whole
+    grid of a one-rank run and on rank 0's block of 2 and 4 ranks, with
+    their bounds: the inputs of :func:`pm_kernel_inputs`."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import specred as sr
+    from thz_image_explorer_tpu_torch.ops import voxel
+    from thz_image_explorer_tpu_torch.parallel import mesh as pm
+
+    spec, stack, flat = pm_kernel_inputs(client, device)
+    grid = client.p.output.grid_wh
+    taps = voxel.gaussian_kernel1d(3.0, 9)
+    out = {}
+    for world in (1, 2, 4):
+        x0, x1, y0, y1 = pm.Mesh(pm.grid_shape(world)).block(0, grid)
+        rows = torch.as_tensor((np.arange(x0, x1)[:, None] * grid[1] + np.arange(y0, y1))
+                               .reshape(-1), device=device)
+        spec_b, stack_b, flat_b = (spec.index_select(0, rows).contiguous(),
+                                   stack.index_select(1, rows).contiguous(),
+                                   flat.index_select(0, rows).contiguous())
+        n, f, t = spec_b.shape[0], spec_b.shape[1], flat_b.shape[1]
+        sr_b, sr_by = specred_bound_ms(n, f, int(stack_b.shape[0]), name)
+        env_b, env_by = envelope_bound_ms(n, t, 9, name)
+        out[f"world{world}"] = dict(
+            n=n, f=f, t=t,
+            specred_ms=device_ms(lambda: sr.spectral_reduction_sums(spec_b, stack_b, False)),
+            specred_bound_ms=sr_b, specred_bound_by=sr_by,
+            specred_plan=check_specred_plan(n, f, int(stack_b.shape[0])),
+            envelope_ms=device_ms(lambda: env.envelope(flat_b, taps, 2.0,
+                                                       _VIEW_OPACITY_THRESHOLD)),
+            envelope_bound_ms=env_b, envelope_bound_by=env_by,
+            envelope_route=check_envelope_plan(n, t, 9)["route"])
     return out
 
 
@@ -2832,21 +2922,35 @@ def pm_check_launches(record, label):
         assert counts["rlsep"] == counts["rlsep_grouped"] == counts["rl2d"] == 0, (label, name)
 
 
-def pm_drive(client, device, seed, on_step=lambda step, host: None, short=False):
-    """:func:`pm_script` and the dense extraction on ``client``, each
-    command timed on the host (a synchronize on each side) with every
-    launch count set to 0 just before it and read just after. Returns
-    ``(per command (name, kind, ms, launches), dense result)``."""
-    record = []
+def pm_drive(client, device, seed, on_step=lambda step, out: None, short=False):
+    """:func:`pm_script` on ``client``, each command timed on the host (a
+    synchronize on each side) with every launch count set to 0 just before
+    it and read just after; the commands of :data:`_PM_METERED` under a
+    ``CollectiveMeter``. ``on_step(step, out)`` gets each command's
+    publish, or a dense extraction's result. Returns ``(per command (name,
+    kind, ms, launches), {dense command: its result}, {metered command:
+    (collective calls, bytes, ms)})``."""
+    record, dense, collectives = [], {}, {}
     for step in pm_script(seed, short):
+        meter = CollectiveMeter(device) if step[0].startswith(_PM_METERED) else None
+        run = client.dense if step[1] == "dense" else (lambda: pm_run(client, step))
         zero_counts()
-        ms, host = host_ms(lambda: pm_run(client, step), device)
+        with meter or contextlib.nullcontext():
+            ms, out = host_ms(run, device)
         record.append((step[0], step[1], ms, read_counts()))
-        on_step(step, host)
-    zero_counts()
-    ms, dense = host_ms(client.dense, device)
-    record.append(("dense", "dense", ms, read_counts()))
-    return record, dense
+        if meter is not None:
+            collectives[step[0]] = (meter.calls, meter.bytes, meter.ms)
+        if step[1] == "dense":
+            dense[step[0]] = out
+        on_step(step, out)
+    return record, dense, collectives
+
+
+def pm_launches(record, prefix=""):
+    """Launches by kernel over the commands whose names start with
+    ``prefix``."""
+    return {k: sum(c[k] for name, _, _, c in record if name.startswith(prefix))
+            for k in record[0][3]}
 
 
 def largest(values):
@@ -2856,14 +2960,22 @@ def largest(values):
     return max(values)
 
 
-def pm_summary(record):
-    """Host ms by kind: the median of steps 2-5 of the slider, of clicks
-    2-10, every other command's own."""
-    by = {}
+def pm_summary(record, collectives):
+    """Host ms by kind, the 2 mod 4 pass's kinds apart (prefixed
+    ``tilt32_``): the median of the slider steps and of the clicks after
+    the first, every other command's own; and the metered commands'
+    collectives' share (the median of their ms after the first over the
+    median of the commands' ms)."""
+    by, shared = {}, {}
     for name, kind, ms, _ in record:
-        by.setdefault(kind, []).append(ms)
+        key = f"tilt32_{kind}" if name.startswith("tilt32") else kind
+        by.setdefault(key, []).append(ms)
+        if name in collectives:
+            shared.setdefault(key, []).append(collectives[name][2])
     out = {k: v if len(v) <= 2 else statistics.median(v[1:]) for k, v in by.items()}
     out["open"] = by["open"][0]
+    for key, ms in shared.items():
+        out[f"{key}_collective_share"] = statistics.median(ms[1:]) / out[key]
     return out
 
 
@@ -2932,16 +3044,23 @@ def _pipeline_mesh_rank(rank, world, store, npy, t, seed, outdir, device, short)
         client = PmClient(Pipeline(device, mesh=mesh), block, device)
         mark("open")
 
-        def keep(step, host):
+        def keep(step, out):
             res["checksums"][step[0]] = slot_checksums(client.p)
-            series.update({f"{step[0]}/{k}": v for k, v in host.items()})
+            if step[0] == "tilt32_dense":
+                # the kernels on this rank's block at T = 1606, F = 804
+                res["kernels_2mod4"] = pm_kernel_checks(client, device,
+                                                        f"{world} ranks, rank {rank}, T 1606")
+            if step[1] == "dense":
+                return
+            series.update({f"{step[0]}/{k}": v for k, v in out.items()})
             if step[0] == "apply_again":
                 series["apply/data"] = client.p.output.data.cpu().numpy()
                 series["apply/origin"] = np.asarray(client.p.output.origin)
 
-        record, dense = pm_drive(client, device, seed, keep, short)
+        record, dense, collectives = pm_drive(client, device, seed, keep, short)
         mark("script")
-        res.update(record=record, summary=pm_summary(record), dense=dense_digest(dense),
+        res.update(record=record, summary=pm_summary(record, collectives),
+                   dense={k: dense_digest(v) for k, v in dense.items()}, collectives=collectives,
                    measure=pm_measure(client, device, f"{world} ranks, rank {rank}"),
                    peak_bytes=torch.cuda.max_memory_allocated() if is_cuda else None)
         mark("measure")
@@ -2997,16 +3116,20 @@ def pm_compare_series(got, ref, label, device, kinds, apply_scale):
 
 def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
     """The ``pipeline_mesh`` phase: the incremental ``Pipeline`` and its
-    ``Publisher`` on one rank's block of the 200x200x1024 scan, then the
-    odd-length pass on a 200x200x1023 scan (:func:`pm_script`'s short
-    script). For each: one rank over NCCL in this process, in lockstep with
-    the single-device ``Pipeline`` (every slot, series, the Apply and the
-    dense extraction bit for bit after every command); 2 (1x2) and 4 (2x2)
+    ``Publisher`` on one rank's block of the 200x200x1024 scan, its script
+    with a pass at trace lengths of 2 mod 4 (:func:`pm_script_2mod4`: T =
+    1606, and 1610 on the downscaled blocks), then the odd-length pass on a
+    200x200x1023 scan (:func:`pm_script`'s short script). For each: one
+    rank over NCCL in this process, in lockstep with the single-device
+    ``Pipeline`` (every slot, series, the Apply and the dense extractions
+    bit for bit after every command); 2 (1x2) and 4 (2x2)
     spawned ranks over gloo on the one card against the one-rank run (slots
     by checksum over each rank's block, bit for bit; series at the
     multi-device tolerance; the Apply within 1e-4 * max; the dense
-    extraction's digest equal). Each rank's launches per command, host ms,
-    collectives and peak memory. The spawned ranks ran in the multi_device
+    extractions' digests equal). Each rank's launches per command, host ms,
+    collectives and peak memory; at T = 1606 each rank's specred and
+    envelope calls against their plain versions on its block, and both
+    kernels' device time on the whole grid and the blocks. The spawned ranks ran in the multi_device
     phase's processes (:func:`md_pm_rank`); ``work`` is that phase's
     temporary directory, which holds both scans and the ranks' results, and
     which this one reads and removes. Returns the phase's record."""
@@ -3020,6 +3143,13 @@ def phase_pipeline_mesh(t, cube, name, smi, seed, work, device="cuda"):
                          "clicks 2-10")
     record.update(pm_pass(t, cube, str(Path(tmp.name, "scan.npy")), tmp, "pm", seed, False, name,
                           device))
+    lengths = record["world1"]["trace_lengths"]
+    assert {k: lengths[k] for k in _PM_LENGTHS_2MOD4} == _PM_LENGTHS_2MOD4, lengths
+    record["tilt_2mod4"] = dict(
+        tilts=dict(scale1=list(_PM_TILT_2MOD4), scale3=list(_PM_TILT_2MOD4_SCALE3)),
+        commands="tilt to (3°, 2°) (T = 1606), 3 slider steps, 5 clicks (their collectives "
+                 "metered), a dense extraction, downscale to 3 (T = 1600), tilt to (3°, 2.1°) "
+                 "(T = 1610), downscale to 1 (T = 1616)")
     t_odd = np.load(Path(tmp.name, "time_odd.npy"))
     npy_odd = str(Path(tmp.name, "scan_odd.npy"))
     cube_odd = np.load(npy_odd, mmap_mode="r")
@@ -3069,54 +3199,66 @@ def pm_pass(t, cube, npy, tmp, sub, seed, short, name, device):
         ref = PmClient(Pipeline(device), whole, device)
         one = PmClient(Pipeline(device, mesh=mesh), block, device)
         by_name = {s[0]: s for s in script}
-        rl_case = {}
+        rl_case, lengths, at_2mod4 = {}, {}, {}
 
-        def lockstep(step, host):
+        def lockstep(step, out):
             """The single device runs the same command after the mesh's,
-            outside its timing and counts; then every slot and series."""
-            ms, want = host_ms(lambda: pm_run(ref, by_name[step[0]]), device)
+            outside its timing and counts; then every slot and series (or
+            the dense extraction's points)."""
+            if step[1] == "dense":
+                ms, want = host_ms(ref.dense, device)
+                mismatches.extend(f"{step[0]} {i}" for i, (a, b) in enumerate(zip(want, out))
+                                  if not np.array_equal(np.asarray(a), np.asarray(b)))
+            else:
+                ms, want = host_ms(lambda: pm_run(ref, by_name[step[0]]), device)
+                mismatches.extend(f"{step[0]} {k}" for k in want
+                                  if not np.array_equal(want[k], out[k], equal_nan=True))
+                series.update({f"{step[0]}/{k}": v for k, v in out.items()})
             ref_ms[step[0]] = ms
+            lengths[step[0]] = one.p.output.n_time
             for i, (a, b) in enumerate(zip(ref.p.slots, one.p.slots)):
                 mismatches.extend(f"{step[0]} slot {i} {f}" for f in _PM_SLOT_FIELDS
                                   if not same_bits(getattr(a, f), getattr(b, f)))
-            mismatches.extend(f"{step[0]} {k}" for k in want
-                              if not np.array_equal(want[k], host[k], equal_nan=True))
-            series.update({f"{step[0]}/{k}": v for k, v in host.items()})
             checksums[step[0]] = {w: [slot_checksums(one.p, lambda g, m=m: m.block(None, g))
                                       for m in meshes] for w, meshes in worlds.items()}
+            if step[0] == "tilt32_dense":
+                # the kernels at T = 1606, F = 804: on the whole grid against
+                # their plain versions, and timed there and at the blocks
+                at_2mod4.update(pm_kernel_checks(one, device, f"{sub} 1 rank, T 1606"))
+                if is_cuda:
+                    at_2mod4["at_blocks"] = pm_kernels_at_blocks(one, device, name)
             if step[0] == "apply":
                 rl_case["inputs"] = dec.rl_inputs(one.p.slots[-2].data,
                                                   one.p.filters[DEC]._plan_cache[1])
             if step[0] == "apply_again":
                 rl_case["apply"] = one.p.output.data
 
-        record1, dense1 = pm_drive(one, device, seed, lockstep, short)
-        dense_ref = ref.dense()
-        for a, b in zip(dense_ref, dense1):
-            if not np.array_equal(np.asarray(a), np.asarray(b)):
-                mismatches.append("dense")
+        record1, dense1, coll1 = pm_drive(one, device, seed, lockstep, short)
         measure1 = pm_measure(one, device, f"{sub} 1 rank")
     finally:
         dist.destroy_process_group()
     assert not mismatches, (f"{sub}: 1 rank vs the single device", mismatches[:20])
     pm_check_launches(record1, f"{sub} 1 rank")
-    digest1 = dense_digest(dense1)
+    digest1 = {k: dense_digest(v) for k, v in dense1.items()}
     record["world1"] = dict(
         backend=backend, mesh=[1, 1], bit_for_bit_with_single_device=True,
         wall_s=time.perf_counter() - t_one,
-        ms=pm_summary(record1), single_device_ms=ref_ms,
-        launches={k: sum(c[k] for *_, c in record1) for k in record1[0][3]},
+        ms=pm_summary(record1, coll1), single_device_ms=ref_ms,
+        launches=pm_launches(record1), launches_2mod4=pm_launches(record1, "tilt32"),
         per_command=[(n, round(ms, 3), c) for n, _, ms, c in record1],
-        dense=dict(points=digest1[0], threshold=digest1[1]),
+        trace_lengths=lengths,
+        dense={k: dict(points=v[0], threshold=v[1]) for k, v in digest1.items()},
         measure=measure1,
         peak_bytes_both_pipelines=torch.cuda.max_memory_allocated() if is_cuda else None)
+    if at_2mod4:
+        record["world1"]["kernels_2mod4"] = at_2mod4
     if has_apply:
         apply1 = rl_case["apply"].cpu().numpy()
         padded, px, py, n_iter = rl_case["inputs"]
         apply_scale = float(np.nanmax(np.abs(apply1)))
     else:
         apply_scale = None
-    del ref, one, whole, block, rl_case, dense1, dense_ref
+    del ref, one, whole, block, rl_case, dense1
     if is_cuda:
         torch.cuda.empty_cache()
 
@@ -3137,12 +3279,16 @@ def pm_pass(t, cube, npy, tmp, sub, seed, short, name, device):
             assert not bad, (label, "slots differ from the one-rank run's block", bad[:20])
             got = dict(np.load(path))
             worst = pm_compare_series(got, series, label, device, kinds, apply_scale)
-            assert tuple(res["dense"]) == digest1, (label, res["dense"], digest1)
+            assert {k: tuple(v) for k, v in res["dense"].items()} == digest1, \
+                (label, res["dense"], digest1)
             rank_record = dict(
                 rank=r, block=list(meshes[r].block(None, cube.shape[:2])), ms=res["summary"],
-                launches={k: sum(c[k] for *_, c in res["record"]) for k in res["record"][0][3]},
+                launches=pm_launches(res["record"]),
+                launches_2mod4=pm_launches(res["record"], "tilt32"),
                 series_max_abs_diff=worst, measure=res["measure"],
                 peak_bytes=res["peak_bytes"], wall_s=res["wall_s"])
+            if "kernels_2mod4" in res:
+                rank_record["kernels_2mod4"] = res["kernels_2mod4"]
             if has_apply:
                 blk = got.pop("apply/data")
                 x0, y0 = (int(v) for v in got.pop("apply/origin"))
@@ -3880,6 +4026,11 @@ def main() -> int:
         **{f"world{w}": [r["launches"][kernel] for r in rec[f"world{w}"]["ranks"]]
            for w in (2, 4)}} for kernel in ("specred", "rlsep_cluster", "envelope")}
         for rec in (pipe, pipe["odd"]))
+    pm_2mod4_launches = {kernel: {
+        "world1": pipe["world1"]["launches_2mod4"][kernel],
+        **{f"world{w}": [r["launches_2mod4"][kernel] for r in pipe[f"world{w}"]["ranks"]]
+           for w in (2, 4)}} for kernel in ("specred", "envelope")}
+    pm_2mod4_blocks = pipe["world1"]["kernels_2mod4"]["at_blocks"]
 
     # 10. the kernels line
     print(json.dumps({"kernels": [{
@@ -3916,6 +4067,10 @@ def main() -> int:
         "launches_multi_device": md_launches["specred"],
         "launches_pipeline_mesh": pm_launches["specred"],
         "launches_pipeline_mesh_odd": pm_odd_launches["specred"],
+        "launches_pipeline_mesh_2mod4": pm_2mod4_launches["specred"],
+        "pipeline_mesh_2mod4_blocks": {w: dict(n=v["n"], f=v["f"], ms=v["specred_ms"],
+                                               bound_ms=v["specred_bound_ms"])
+                                       for w, v in pm_2mod4_blocks.items()},
         "multi_device_block": {w: dict(n=v["n"], ms=v["specred_ms"], bound_ms=v["specred_bound_ms"])
                                for w, v in md_block.items()},
     }, {
@@ -4000,6 +4155,11 @@ def main() -> int:
         "launches_multi_device": md_launches["envelope"],
         "launches_pipeline_mesh": pm_launches["envelope"],
         "launches_pipeline_mesh_odd": pm_odd_launches["envelope"],
+        "launches_pipeline_mesh_2mod4": pm_2mod4_launches["envelope"],
+        "pipeline_mesh_2mod4_blocks": {w: dict(n=v["n"], t=v["t"], ms=v["envelope_ms"],
+                                               bound_ms=v["envelope_bound_ms"],
+                                               route=v["envelope_route"])
+                                       for w, v in pm_2mod4_blocks.items()},
         "multi_device_block": {w: dict(n=v["n"], ms=v["envelope_ms"],
                                        bound_ms=v["envelope_bound_ms"])
                                for w, v in md_block.items()},

@@ -1,16 +1,18 @@
 """Does a row's batched FFT, or its sum of squares, keep its bits whatever
-the batch it is computed in? The question behind ``ops/fourier.MIN_FFT_ROWS``
-and ``ops/fourier.row_stride``: a rank's block of a sharded cube must get the
-whole cube's values.
+the batch it is computed in? The question behind ``ops/fourier.MIN_FFT_ROWS``,
+``ops/fourier.pairs_rows`` and ``ops/intensity.intensity_image``'s aligned
+stride: a rank's block of a sharded cube must get the whole cube's values.
 
     python3 scripts/torch_fft_batch_probe.py [--device cuda] [--min-rows 8192]
-        [--lengths 1024 128 64 1488 745 1023]
+        [--lengths 1024 128 64 1488 745 1023 1606]
 
-For each trace length (even, short, the tilted T = 1488, and the odd 745 and
-1023), it takes rows of a 40 000-row random batch as batches of 1 to 40 000
-rows, at offsets 0-3 and 7 (with an odd length, an offset moves every row
-to another alignment than it has in the whole batch), and prints, per
-length, the number of rows whose bits differ from the whole batch's:
+For each trace length (even, short, the tilted T = 1488, the odd 745 and
+1023, and the tilted T = 1606, whose rows lie at two alignments), it takes
+rows of a 40 000-row random batch as batches of 1 to 40 000 rows, at
+offsets 0-3 and 7 (with a length that is not a multiple of 4, an offset
+moves rows to other alignments than they have in the whole batch), and
+prints, per length, the number of rows whose bits differ from the whole
+batch's:
 
 * ``rfft``, ``irfft``, ``sumsq``: ``torch.fft.rfft`` / ``irfft`` and the
   per-row sum of squares (the intensity image) as the library runs them on
@@ -94,7 +96,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--min-rows", type=int, default=8192)
-    ap.add_argument("--lengths", type=int, nargs="+", default=[1024, 128, 64, 1488, 745, 1023])
+    ap.add_argument("--lengths", type=int, nargs="+",
+                    default=[1024, 128, 64, 1488, 745, 1023, 1606])
     args = ap.parse_args()
     dev = torch.device(args.device)
     if dev.type == "cuda":

@@ -2,7 +2,7 @@
 """Which slots of the sharded ``Pipeline`` differ from the single device's?
 
     python3 scripts/torch_pipeline_mesh_probe.py [--n-time 1023] [--size 200]
-        [--worlds 2 4] [--device cuda]
+        [--worlds 2 4] [--device cuda] [--tilt 3 2]
 
 Saves the synthetic size x size x n_time scan of ``chip_smoke.py`` as a
 memory-mapped ``.npy`` and, for each world size, spawns that many ranks
@@ -13,9 +13,11 @@ its block (``parallel.open_arrays_sharded``) into ``Pipeline(mesh=)`` and
 runs the same commands, comparing after each one every slot's ``data``,
 ``fft``, ``amplitudes`` and ``phases`` and the final slot's intensity image
 with the kept parts, bit for bit. Commands: the open with the main path's
-filters (TD band-pass before the FFT, FD band-pass, water notch), 3 slider
-steps, a downscale to 3 and back to 1. Prints one JSON line per world: for
-each command, the differing ``slot:stage:field`` entries of each rank (the
+filters (TD band-pass before the FFT, FD band-pass, water notch), with
+``--tilt X Y`` a tilt to (X°, Y°) (at 200x200x1024, (3, 2) gives T = 1606
+at scale 1 and 1600 at scale 3, (3, 2.1) 1616 and 1610), 3 slider steps, a
+downscale to 3 and back to 1. Prints one JSON line per world: for each
+command, the differing ``slot:stage:field`` entries of each rank (the
 first slot in chain order says where the values part), and the card's name
 and power limit.
 """
@@ -41,7 +43,14 @@ FILTERS = ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_notc
 FIELDS = ("data", "fft", "amplitudes", "phases")
 
 
-def commands():
+def commands(tilt=None):
+    def tilt_to(xy):
+        def run(p):
+            stage = p.filters["tilt_compensation"]
+            stage.active, (stage.tilt_x, stage.tilt_y) = True, xy
+            p.update_filter("tilt_compensation")
+        return run
+
     def slider(v):
         def run(p):
             p.config.fft_window[0] = v
@@ -54,29 +63,30 @@ def commands():
             p.run_from(p.scaling_index)
         return run
 
-    return [("slider1", slider(1.05)), ("slider2", slider(1.10)), ("slider3", slider(1.15)),
-            ("downscale3", scale(3)), ("downscale1", scale(1))]
+    tilted = [("tilt", tilt_to(tuple(tilt)))] if tilt else []
+    return tilted + [("slider1", slider(1.05)), ("slider2", slider(1.10)),
+                     ("slider3", slider(1.15)), ("downscale3", scale(3)), ("downscale1", scale(1))]
 
 
-def drive(pipeline, cube, after):
+def drive(pipeline, cube, after, tilt):
     for uuid in FILTERS:
         pipeline.filters[uuid].active = True
     pipeline.set_input(cube)
     after("open", pipeline)
-    for name, run in commands():
+    for name, run in commands(tilt):
         run(pipeline)
         after(name, pipeline)
 
 
-def rank_main(rank, world, store, npy, t, device, outdir):
+def rank_main(rank, world, store, npy, t, device, outdir, tilt):
     try:
-        _rank_main(rank, world, store, npy, t, device, outdir)
+        _rank_main(rank, world, store, npy, t, device, outdir, tilt)
     except BaseException:
         pathlib.Path(outdir, f"rank{rank}.err").write_text(traceback.format_exc())
         raise
 
 
-def _rank_main(rank, world, store, npy, t, device, outdir):
+def _rank_main(rank, world, store, npy, t, device, outdir, tilt):
     import torch
     import torch.distributed as dist
 
@@ -112,10 +122,10 @@ def _rank_main(rank, world, store, npy, t, device, outdir):
             bad.append("image")
         diffs[name] = bad
 
-    drive(Pipeline(device), whole, keep)
+    drive(Pipeline(device), whole, keep, tilt)
     del whole
     block, _, _ = open_arrays_sharded(t, mm, mesh, metadata=scan_metadata(0.5), device=device)
-    drive(Pipeline(device, mesh=mesh), block, compare)
+    drive(Pipeline(device, mesh=mesh), block, compare, tilt)
     pathlib.Path(outdir, f"rank{rank}.json").write_text(json.dumps(diffs))
     dist.destroy_process_group()
 
@@ -127,6 +137,8 @@ def main() -> int:
     ap.add_argument("--worlds", type=int, nargs="+", default=[2, 4])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tilt", type=float, nargs=2, default=None, metavar=("X", "Y"),
+                    help="tilt compensation (degrees) after the open")
     args = ap.parse_args()
 
     import torch
@@ -155,7 +167,7 @@ def main() -> int:
             t0 = time.perf_counter()
             procs = [ctx.Process(target=rank_main, daemon=True,
                                  args=(r, world, str(wdir / "store"), npy, t, args.device,
-                                       str(wdir)))
+                                       str(wdir), args.tilt))
                      for r in range(world)]
             for p in procs:
                 p.start()
@@ -168,6 +180,7 @@ def main() -> int:
                      if (wdir / f"rank{r}.json").exists() else None for r in range(world)]
             ok = ok and not errors and all(r is not None for r in ranks)
             print(json.dumps({"card": card, "n_time": args.n_time, "size": args.size,
+                              "tilt": args.tilt,
                               "world": world, "seconds": time.perf_counter() - t0,
                               "differ": ranks, "errors": errors}), flush=True)
     print(card, flush=True)

@@ -7,7 +7,8 @@ cube (``Pipeline(mesh=)``) and its publish, on the CPU.
   dx and dy, 3 box ROIs and a pixel whose owner changes with the downscale.
   Each rank opens only its block and runs the scripted commands (the four
   filter stages, a slider step, downscales by 2, 3 and 7, tilt (2°, 2°),
-  avg-in-Fourier, and back), a click, the Apply and a slider step after it,
+  avg-in-Fourier, and back; tilt (2°, 1°), whose trace length is 2 mod 4,
+  a downscale by 3 under it, and back), a click, the Apply and a slider step after it,
   and the dense 3-D extraction. Checked: (a) after every command each
   rank's slots equal the unsharded port's over its block bit for bit (in
   the rank); (b) the published series and images equal the unsharded
@@ -19,10 +20,11 @@ cube (``Pipeline(mesh=)``) and its publish, on the CPU.
   after it; (f) the dense extraction's threshold and points equal the
   unsharded port's (also with the cap lowered, so that the joined
   histograms run) and match JAX's; (i) a click reduces nothing;
-* odd trace lengths (63 and 65 samples, beside the even 64): the same
-  spawned runs and checks (a), (b), (c), (e), (f) and (g) on scans of those
-  lengths (``ops/fourier.batch_fft`` pairs each row of an odd length with a
-  zero row, ``ops/intensity`` sums its squares at an aligned stride);
+* other trace lengths (63 and 65 samples, and 62 and 66, which are 2 mod
+  4, beside 64): the same spawned runs and checks (a), (b), (c), (e), (f)
+  and (g) on scans of those lengths (``ops/fourier.batch_fft`` pairs each
+  row of an odd length with a zero row, ``ops/intensity`` sums the squares
+  of a length that is not a multiple of 4 at an aligned stride);
 * in this process: (d) every block's tilt shifts equal the whole grid's;
   (g) a one-rank mesh without a group equals ``Pipeline()`` bit for bit;
   (h) ``set_input`` refuses a foreign block and a whole cube; the owner
@@ -133,9 +135,10 @@ def ranks(request, scan_files, tmp_path_factory):
     return world, _spawn(world, tmp_path_factory.mktemp(f"world{world}"), *scan_files)
 
 
-@pytest.fixture(scope="module", params=[63, 65], ids=["n63", "n65"])
+@pytest.fixture(scope="module", params=[62, 63, 65, 66], ids=["n62", "n63", "n65", "n66"])
 def odd_scan_files(request, tmp_path_factory):
-    """Scans of an odd trace length, with the PSF."""
+    """Scans of a trace length other than 64 (odd, or 2 mod 4), with the
+    PSF."""
     return _scan_files(tmp_path_factory, request.param)
 
 
@@ -152,7 +155,7 @@ def odd_reference(odd_scan_files, odd_whole):
 @pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
 def odd_ranks(request, odd_scan_files, odd_whole, tmp_path_factory):
     world = request.param
-    assert odd_whole.n_time % 2 == 1
+    assert odd_whole.n_time % 4 != 0
     return world, _spawn(world, tmp_path_factory.mktemp(f"odd{odd_whole.n_time}_world{world}"),
                          *odd_scan_files)
 
@@ -184,11 +187,27 @@ def test_slots_keep_the_mesh_layout(ranks, whole):
     mesh = pm.Mesh(pm.grid_shape(world))
     for res, _ in got:
         for step, origins in res["origins"].items():
-            scale = {"scale2": 2, "scale3": 3, "scale7": 7, "tilt_scale7": 7}.get(step, 1)
+            scale = {"scale2": 2, "scale3": 3, "scale7": 7, "tilt_scale7": 7,
+                     "tilt_2mod4_scale3": 3}.get(step, 1)
             grid = (whole.width // scale, whole.height // scale)
             x0, _, y0, _ = mesh.block(res["rank"], grid)
             assert origins[-1] == [x0, y0], (step, res["rank"], origins)
             assert origins[0] == list(mesh.block(res["rank"], (30, 22))[::2])
+
+
+def test_second_tilt_runs_at_a_length_of_2_mod_4(ranks, whole):
+    """The second tilt's trace length is 2 mod 4 at scale 1 and at scale 3,
+    and at scale 3 a block's rows are not where the whole grid's rows of
+    the same pixels lie modulo 2 rows (so at other 16-byte alignments)."""
+    world, got = ranks
+    mesh = pm.Mesh(pm.grid_shape(world))
+    for _, out in got:
+        for step in ("tilt_2mod4", "tilt_2mod4_scale3"):
+            assert len(out[f"{step}/filtered_time"]) % 4 == 2, step
+    grid = (whole.width // 3, whole.height // 3)
+    blocks = [mesh.block(r, grid) for r in range(world)]
+    assert any((x * (y1 - y0) + y) % 2 != ((x0 + x) * grid[1] + y0 + y) % 2
+               for x0, x1, y0, y1 in blocks for x in range(x1 - x0) for y in range(y1 - y0))
 
 
 @pytest.mark.parametrize("step", STEPS)
@@ -377,12 +396,13 @@ def test_odd_length_one_rank_mesh_equals_pipeline(odd_scan_files, odd_whole, odd
     _check_one_rank(odd_scan_files, odd_whole, odd_reference)
 
 
-@pytest.mark.parametrize("n", [63, 64, 65])
-def test_batch_fft_pairs_odd_rows_with_zero_rows(n):
+@pytest.mark.parametrize("n", [62, 63, 64, 65, 66])
+def test_batch_fft_pairs_odd_rows_with_zero_rows(n, monkeypatch):
     """At an odd length the transform sees each row followed by a zero row
     (the batch twice as long) and gives the plain transform's values; an
-    even length reaches it as it is. The intensity image sums the squares
-    of each row at either length."""
+    even length, 0 or 2 mod 4, reaches it as it is. The intensity image
+    sums the squares of each row, from rows 16-byte aligned at every
+    length."""
     from thz_image_explorer_tpu_torch.ops import fourier
     from thz_image_explorer_tpu_torch.ops.intensity import intensity_image
 
@@ -398,6 +418,7 @@ def test_batch_fft_pairs_odd_rows_with_zero_rows(n):
     cube = make_cube((np.arange(n) * 0.05).astype(np.float32), x.numpy(), device="cpu")
     spec = fourier.batch_fft(recording(torch.fft.rfft), x, cube)
     back = fourier.batch_fft(recording(torch.fft.irfft), spec, cube, n=n)
+    assert fourier.pairs_rows(n) == bool(n % 2)
     if n % 2:
         assert seen[0].shape == (30, n) and seen[1].shape == (30, n // 2 + 1)
         assert torch.equal(seen[0][0::2], x.reshape(15, n)) and not seen[0][1::2].any()
@@ -407,7 +428,18 @@ def test_batch_fft_pairs_odd_rows_with_zero_rows(n):
     assert spec.shape == (5, 3, n // 2 + 1) and spec.is_contiguous() and back.shape == x.shape
     assert torch.equal(spec, torch.fft.rfft(x, dim=-1))
     torch.testing.assert_close(back, x, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(intensity_image(x), (x * x).sum(-1), atol=1e-5, rtol=1e-6)
+
+    summed, real_sum = [], torch.sum
+
+    def recording_sum(t, *a, **kw):
+        summed.append((t.stride(-2), t.data_ptr() % 16))
+        return real_sum(t, *a, **kw)
+
+    monkeypatch.setattr(torch, "sum", recording_sum)
+    img = intensity_image(x[1:])
+    monkeypatch.setattr(torch, "sum", real_sum)
+    assert summed and all(stride % 4 == 0 and offset == 0 for stride, offset in summed), summed
+    torch.testing.assert_close(img, (x[1:] * x[1:]).sum(-1), atol=1e-5, rtol=1e-6)
 
 
 # ------------------------------------------------------ in this process

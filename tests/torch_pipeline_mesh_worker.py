@@ -43,10 +43,10 @@ LOW_CAP = 5_000
 THICKNESS = 1e-3
 
 
-def _tilt(on: bool):
+def _tilt(on: bool, angles=(2.0, 2.0)):
     def run(p):
         f = p.filters["tilt_compensation"]
-        f.active, f.tilt_x, f.tilt_y = on, 2.0, 2.0
+        f.active, (f.tilt_x, f.tilt_y) = on, angles
         p.update_filter("tilt_compensation")
     return run
 
@@ -77,10 +77,16 @@ def _back(p):
     p.run_from(1)
 
 
+#: the second tilt: on the 30x22x64 scan (dx = dy = 1 mm) its trace length
+#: is 2 mod 4 at scale 1 (158) and, on the 10x7 grid, at scale 3 (158),
+#: where a rank's rows lie at other alignments than the whole grid's
+TILT_2MOD4 = (2.0, 1.0)
 #: the scripted commands after the open (every one followed by a publish)
 COMMANDS = (("slider", _slider), ("scale2", _scale(2)), ("scale3", _scale(3)),
             ("scale7", _scale(7)), ("tilt_scale7", _tilt(True)), ("tilt", _scale(1)),
-            ("fourier", _fourier(True)), ("back", _back))
+            ("fourier", _fourier(True)), ("back", _back),
+            ("tilt_2mod4", _tilt(True, TILT_2MOD4)), ("tilt_2mod4_scale3", _scale(3)),
+            ("back_2mod4", _back))
 
 
 def open_pipeline(pipeline, cube):

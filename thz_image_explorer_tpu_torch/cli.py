@@ -30,17 +30,13 @@ import numpy as np
 
 
 def _cmd_info(args):
-    from thz_image_explorer_tpu_torch.data import resolve_device
     from thz_image_explorer_tpu_torch.io import dotthz
 
-    host = dotthz.open_scan_host(args.scan)
-    cube, img = dotthz.finalize_scan(host, resolve_device(args.device))
-    img = img.cpu().numpy()
-    md = host.metadata
+    cube, img, md = dotthz.open_scan(args.scan, args.device)
     print(f"file:      {args.scan}")
     print(f"scan:      {img.shape[0]} x {img.shape[1]} pixels x {cube.n_time} samples")
     print(f"dx/dy:     {cube.dx} / {cube.dy} mm")
-    t = host.time
+    t = cube.time.cpu().numpy()
     dt = f" (dt {t[1] - t[0]:.4f})" if len(t) > 1 else ""
     print(f"time:      {t[0]:.2f} .. {t[-1]:.2f} ps{dt}")
     f = cube.freq.cpu().numpy()

@@ -181,6 +181,11 @@ def make_cube(
     )
 
 
+def device_zeros(*, shape, dtype, device=None) -> torch.Tensor:
+    """A zero-filled tensor on ``device`` (None: the card)."""
+    return torch.zeros(shape, dtype=dtype, device=resolve_device(device))
+
+
 def load_preprocess(data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel DC-offset subtraction using sample 0, plus the intensity
     image (``io.rs:576-595``). Returns a new tensor; ``data`` is left as

@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from thz_image_explorer_tpu_torch.data import ScanCube, load_preprocess, make_cube
+from thz_image_explorer_tpu_torch.data import ScanCube, load_preprocess, make_cube, resolve_device
 
 
 @dataclasses.dataclass
@@ -297,6 +297,16 @@ def _host_scan(time, data, metadata, dx, dy) -> HostScan:
         x_min=_parse("x_min [mm]", float),
         y_min=_parse("y_min [mm]", float),
     )
+
+
+def open_scan(path: str, device=None) -> tuple[ScanCube, np.ndarray, DotthzMetadata]:
+    """Open a scan file onto ``device`` (None: the card): ``(cube,
+    intensity_image, metadata)``, the host read (:func:`open_scan_host`)
+    and the device phase (:func:`finalize_scan`), the image as host numpy
+    (``io.rs:576-595``)."""
+    host = open_scan_host(path)
+    cube, img = finalize_scan(host, resolve_device(device))
+    return cube, img.cpu().numpy(), host.metadata
 
 
 def finalize_scan(host: HostScan, device="cuda") -> tuple[ScanCube, torch.Tensor]:

@@ -265,3 +265,17 @@ def create_psf_axes(
     interp_x = np.interp(xx, x, psf_x)
     interp_y = np.interp(yy, y, psf_y)
     return interp_x.astype(np.float32), interp_y.astype(np.float32)
+
+
+def create_psf_2d(
+    psf_x: np.ndarray,
+    psf_y: np.ndarray,
+    x: np.ndarray,
+    y: np.ndarray,
+    dx: float,
+    dy: float,
+) -> np.ndarray:
+    """Dense 2-D PSF: the outer product of :func:`create_psf_axes`
+    (``filters/psf.rs:228-313``); not sum-normalized."""
+    px, py = create_psf_axes(psf_x, psf_y, x, y, dx, dy)
+    return np.outer(px, py).astype(np.float32)

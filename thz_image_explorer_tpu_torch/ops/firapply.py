@@ -27,6 +27,10 @@ import torch
 
 from thz_image_explorer_tpu_torch.data import resolve_device
 
+#: output samples per window of the banded-matrix form
+#: (:func:`fir_block_matrix`, :func:`window_input`)
+FIR_BLOCK = 256
+
 
 def fft_length(n: int) -> int:
     """The smallest 2^a 3^b 5^c >= n (lengths cuFFT and pocketfft run
@@ -85,3 +89,37 @@ def average_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def take_band(cube: torch.Tensor, i: int) -> torch.Tensor:
     """One band (P, T) of a (B, P, T) filtered cube, still on its device."""
     return cube[i]
+
+
+def fir_block_matrix(taps: np.ndarray, block: int = FIR_BLOCK) -> np.ndarray:
+    """The banded-matrix form of one band's correlation (the JAX package's
+    matrix-unit route; the port correlates through spectra): ``G[m, t] =
+    taps[t + ntaps - 1 - m]``, zeros outside, (block + ntaps - 1, block)
+    float32. ``window_input(x, ntaps, shift) @ G`` gives ``block``
+    outputs per window; the centring shift lives wholly in
+    :func:`window_input`'s left pad, so pair the two with the same
+    shift."""
+    ntaps = len(taps)
+    width = block + ntaps - 1
+    m = np.arange(width)[:, None]
+    t = np.arange(block)[None, :]
+    idx = t + ntaps - 1 - m
+    valid = (idx >= 0) & (idx < ntaps)
+    return np.where(
+        valid, np.asarray(taps, np.float32)[np.clip(idx, 0, ntaps - 1)], 0.0
+    ).astype(np.float32)
+
+
+def window_input(flat: torch.Tensor, ntaps: int, shift: int,
+                 block: int = FIR_BLOCK) -> torch.Tensor:
+    """Sliding input windows of a (N, T) batch of traces for
+    :func:`fir_block_matrix`: ``xw[n, i, :] = padded[n, i * block: i *
+    block + block + ntaps - 1]``, the traces zero-padded by ``ntaps - 1 -
+    shift`` on the left and up to whole blocks on the right; (N,
+    ceil(T / block), block + ntaps - 1)."""
+    n_time = flat.shape[-1]
+    width = block + ntaps - 1
+    nb = -(-n_time // block)
+    left = ntaps - 1 - shift
+    xp = torch.nn.functional.pad(flat, (left, shift + nb * block - n_time))
+    return torch.stack([xp[:, i * block: i * block + width] for i in range(nb)], dim=1)

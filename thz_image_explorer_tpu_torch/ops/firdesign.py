@@ -152,3 +152,18 @@ def create_filter_bank(
         hi = high_cut if i == n_filters - 1 else float(np.sqrt(fc * centers[i + 1]))
         bank[i] = bandpass_kaiser(ntaps, lo, hi, fs, win_width)
     return bank, centers
+
+
+def frequency_response(
+    taps: np.ndarray, n_points: int, fs: float
+) -> tuple[np.ndarray, np.ndarray]:
+    """Magnitude response sampled at ``n_points`` up to fs/2
+    (``psf_tool/filters.rs:280-304``)."""
+    taps = np.asarray(taps, np.float64)
+    k = np.arange(n_points)
+    freqs = k * fs / (2.0 * n_points)
+    omega = 2.0 * np.pi * freqs / fs
+    n = np.arange(len(taps))
+    phases = -np.outer(omega, n)
+    mags = np.abs((taps * np.exp(1j * phases)).sum(axis=1))
+    return freqs, mags

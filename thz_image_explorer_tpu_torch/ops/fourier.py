@@ -37,8 +37,8 @@ TWO_PI_F32 = float(np.float32(2.0 * math.pi))
 #: length 128: up to 2 178 against 4 356 and more). A rank's block of a
 #: sharded cube is padded with zero rows to the whole grid's row count or to
 #: this many, whichever is fewer, so that it takes the whole cube's algorithm
-#: and gets its bits. A whole cube is never padded. An odd trace length has a
-#: second rule (:func:`batch_fft`).
+#: and gets its bits, at every trace length. A whole cube is never padded.
+#: An odd trace length has a second rule (:func:`pairs_rows`).
 MIN_FFT_ROWS = 8192
 
 
@@ -87,33 +87,49 @@ def _abs_angle(spec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.hypot(re, im), torch.atan2(im, re)
 
 
+def pairs_rows(n: int) -> bool:
+    """Whether :func:`batch_fft` follows each row of length ``n`` with a
+    zero row: at an odd length, and at no even one. cuFFT transforms the
+    rows of an odd length two at a time (rows 2k and 2k + 1 of the batch as
+    one complex transform, an odd batch's last row alone), so a row's bits
+    depend on the row it is paired with, and a block's rows have other
+    neighbours than the whole cube's. At an even length a row's bits depend
+    on neither its neighbours nor its alignment: neither at a multiple of 4
+    (64, 128, 1024, 1488) nor at 2 mod 4 (1606: rows at two alignments),
+    for batches of 1 to 40 000 rows at offsets 0-3 and 7
+    (``scripts/torch_fft_batch_probe.py``, the variants ``rfft``, ``irfft``
+    and ``*_interleaved``; NVIDIA H100, CUDA 12.8)."""
+    return n % 2 == 1
+
+
 def batch_fft(fn, x: torch.Tensor, cube: ScanCube, **kw) -> torch.Tensor:
     """``fn(x, dim=-1, **kw)`` (``torch.fft.rfft`` or ``irfft``) over the
     rows of ``x`` (X, Y, n), the pixels of ``cube``, with each row's bits
-    independent of the rows around it:
+    independent of the rows around it. Two rules, each for the lengths it
+    names:
 
-    * on a CUDA tensor of a block of a sharded cube (``cube.grid`` set) the
-      batch is padded with zero rows to ``min(X' * Y', MIN_FFT_ROWS)`` for
-      the whole grid's ``(X', Y')``: at most the whole cube's own batch;
-    * at an odd trace length every row is followed by a zero row in the
-      batch, on every cube and device. cuFFT transforms the rows of an odd
-      length two at a time (rows 2k and 2k + 1 of the batch as one complex
-      transform, an odd batch's last row alone), so a row's bits depend on
-      the row it is paired with: a block's rows have other neighbours than
-      the whole cube's (``scripts/torch_fft_batch_probe.py``, the variants
-      ``rfft_interleaved`` and ``irfft_interleaved``). Paired with zeros,
-      each row is transformed alike wherever it lies, at the cost of a
-      batch twice as long. An even length takes the plain batch: the
-      single-device path there is as it was."""
+    * at every length, on a CUDA tensor of a block of a sharded cube
+      (``cube.grid`` set), the batch is padded with zero rows to ``min(X' *
+      Y', MIN_FFT_ROWS)`` for the whole grid's ``(X', Y')``: at most the
+      whole cube's own batch (cuFFT chooses its algorithm by the batch);
+    * at an odd length (:func:`pairs_rows`) every row is followed by a zero
+      row in the batch, on every cube and device: paired with zeros, each
+      row is transformed alike wherever it lies, at the cost of a batch
+      twice as long.
+
+    An even length, 0 or 2 mod 4, takes the plain batch on a single
+    device: its FFTs are as they were. (The intensity image of rows of 2
+    mod 4 does depend on their alignment: :func:`ops.intensity.
+    intensity_image`.)"""
     rows = x.shape[0] * x.shape[1]
     n = kw.get("n", x.shape[-1])
     want = rows
     if x.device.type == "cuda" and cube.grid is not None:
         want = max(rows, min(cube.grid[0] * cube.grid[1], MIN_FFT_ROWS))
-    if rows == 0 or (want == rows and n % 2 == 0):
+    if rows == 0 or (want == rows and not pairs_rows(n)):
         return fn(x, dim=-1, **kw)
     flat = x.reshape(rows, x.shape[-1])
-    if n % 2 == 0:
+    if not pairs_rows(n):
         padded = torch.cat([flat, flat.new_zeros((want - rows, x.shape[-1]))])
         out = fn(padded, dim=-1, **kw)[:rows]
     else:

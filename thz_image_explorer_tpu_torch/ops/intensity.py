@@ -10,17 +10,20 @@ import torch
 
 
 def intensity_image(data: torch.Tensor) -> torch.Tensor:
-    """Sum of squares along the time axis. At an odd trace length the
-    squares are written at a row stride rounded up to 4 floats and summed
-    from there: a CUDA reduction sums a row in an order that depends on the
-    row's 16-byte alignment, and contiguous rows of an odd length lie at
-    every alignment, in a rank's block at others than in the whole cube
-    (``scripts/torch_fft_batch_probe.py``, ``sumsq`` against
-    ``sumsq_aligned``). An even length sums the contiguous rows."""
+    """Sum of squares along the time axis, each row summed from a 16-byte
+    aligned start. A CUDA reduction sums a row in an order that depends on
+    the row's 16-byte alignment, and contiguous rows of a length that is
+    not a multiple of 4 floats lie at several alignments (four at an odd
+    length, two at a length of 2 mod 4), in a rank's block at others than
+    in the whole cube (``scripts/torch_fft_batch_probe.py``, ``sumsq``
+    against ``sumsq_aligned``: NVIDIA H100, CUDA 12.8, lengths 745, 1023
+    and 1606). So at such a length the squares are written at a row stride
+    rounded up to 4 floats and summed from there; at a multiple of 4 every
+    contiguous row is aligned and the contiguous squares are summed."""
     t = data.shape[-1]
-    if t % 2 == 0:
+    if t % 4 == 0:
         return torch.sum(data * data, dim=-1)
-    squares = data.new_zeros((*data.shape[:-1], -(-t // 4) * 4))[..., :t]
+    squares = data.new_empty((*data.shape[:-1], -(-t // 4) * 4))[..., :t]
     torch.mul(data, data, out=squares)
     return torch.sum(squares, dim=-1)
 

@@ -79,6 +79,18 @@ class StepParams:
     water_lines: np.ndarray = dataclasses.field(
         default_factory=lambda: np.asarray(WATER_LINES_THZ, np.float32))
 
+    @staticmethod
+    def defaults() -> "StepParams":
+        """The default values (the JAX package's; its water-lines table
+        placed on the device there, moved where it is used here)."""
+        return StepParams()
+
+    @staticmethod
+    def defaults_np() -> "StepParams":
+        """The default values with host leaves: the same as
+        :meth:`defaults` in the port."""
+        return StepParams()
+
 
 def _spectrum(cube: ScanCube, params: StepParams, cfg: StepConfig,
               mesh: Optional[Mesh] = None) -> tuple[ScanCube, torch.Tensor]:

@@ -24,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from thz_image_explorer_tpu_torch.data import make_cube, resolve_device
+from thz_image_explorer_tpu_torch.data import ScanCube, make_cube, resolve_device
 from thz_image_explorer_tpu_torch.io import dotthz as thzio
 from thz_image_explorer_tpu_torch.io.files import find_files_with_same_extension
 from thz_image_explorer_tpu_torch.io.psf_npz import load_psf
@@ -81,17 +81,30 @@ class HouseKeeping:
 
     @staticmethod
     def from_scan(host: thzio.HostScan) -> "HouseKeeping":
+        return HouseKeeping._from_geometry(host.dx, host.dy, host.x_min, host.y_min,
+                                           host.valid_wh, host.time)
+
+    @staticmethod
+    def from_cube(cube: ScanCube, valid_wh: Optional[tuple[int, int]] = None) -> "HouseKeeping":
+        """From a cube's geometry; the ranges span ``valid_wh`` (the cube's
+        own size when None)."""
+        wh = valid_wh if valid_wh is not None else (cube.width, cube.height)
+        return HouseKeeping._from_geometry(cube.dx, cube.dy, cube.x_min, cube.y_min, wh,
+                                           cube.time.cpu().numpy())
+
+    @staticmethod
+    def _from_geometry(dx, dy, x_min, y_min, wh, time) -> "HouseKeeping":
         hk = HouseKeeping()
-        hk.dx = host.dx if host.dx is not None else 1.0
-        hk.dy = host.dy if host.dy is not None else 1.0
-        x0 = host.x_min if host.x_min is not None else 0.0
-        y0 = host.y_min if host.y_min is not None else 0.0
-        w, h = host.valid_wh
+        hk.dx = dx if dx is not None else 1.0
+        hk.dy = dy if dy is not None else 1.0
+        x0 = x_min if x_min is not None else 0.0
+        y0 = y_min if y_min is not None else 0.0
+        w, h = wh
         hk.x_range = (x0, x0 + w * hk.dx)
         hk.y_range = (y0, y0 + h * hk.dy)
-        if len(host.time):
-            hk.t_begin = float(host.time[0])
-            hk.range = float(host.time[-1] - host.time[0])
+        if len(time):
+            hk.t_begin = float(time[0])
+            hk.range = float(time[-1] - time[0])
         return hk
 
 

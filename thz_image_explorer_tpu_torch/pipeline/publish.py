@@ -36,11 +36,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from thz_image_explorer_tpu_torch.data import ScanCube, masked_pixel_sum
+from thz_image_explorer_tpu_torch.data import ScanCube, masked_pixel_mean, masked_pixel_sum
 from thz_image_explorer_tpu_torch.ops.fourier import polar_irfft
 from thz_image_explorer_tpu_torch.ops.intensity import intensity_image, upscale_image
 from thz_image_explorer_tpu_torch.ops.optical import calculate_optical_properties
-from thz_image_explorer_tpu_torch.ops.roi import masked_sum_stack
+from thz_image_explorer_tpu_torch.ops.roi import masked_mean_stack, masked_sum_stack
 from thz_image_explorer_tpu_torch.ops.specred import lean_spectral_finish, lean_spectral_sums
 from thz_image_explorer_tpu_torch.parallel.mesh import (
     all_sum_parts,
@@ -186,28 +186,70 @@ class Publisher:
             self._key = key
         else:
             joined = all_sum_parts(list(rows.values()), mesh)
-        red = self._reduced
         sel = dict(zip(rows, joined))
-        # optical properties (data_thread.rs:1489-1559)
         if optical is not None:
-            def pick(side):
-                mode = optical[f"{side}_mode"]
-                if mode == "roi":
-                    i = optical[f"{side}_idx"]
-                    return red["roi_amp"][i], red["roi_ph"][i]
-                if mode == "pseudo":
-                    pseudo = torch.as_tensor(optical[f"{side}_pseudo"], device=final.device)
-                    return pseudo[0], pseudo[1]
-                return sel["filtered_signal_fft"], sel["filtered_phase_fft"]
-
-            (ref_amp, ref_ph), (samp_amp, samp_ph) = pick("ref"), pick("samp")
-            n, alpha, kappa = calculate_optical_properties(
-                samp_amp, samp_ph, ref_amp, ref_ph, final.freq,
-                float(optical["thickness"]),
-            )
-            sel.update(
-                refractive_index=n,
-                absorption_coefficient=alpha,
-                extinction_coefficient=kappa,
-            )
+            sel.update(_optical(optical, self._reduced, sel, final))
         return dict(self._reduced_host, **_to_host(sel))
+
+
+def _optical(optical: dict, reduced: dict, sel: dict, final: ScanCube) -> dict:
+    """n, alpha and kappa of the optical selection (``data_thread.rs:
+    1489-1559``): the reference and the sample each an ROI's mean spectrum
+    (``reduced``), a loaded pulse ("pseudo") or, for the sample, the
+    selected pixel's spectrum (``sel``)."""
+    def pick(side):
+        mode = optical[f"{side}_mode"]
+        if mode == "roi":
+            i = optical[f"{side}_idx"]
+            return reduced["roi_amp"][i], reduced["roi_ph"][i]
+        if mode == "pseudo":
+            pseudo = torch.as_tensor(optical[f"{side}_pseudo"], device=final.device)
+            return pseudo[0], pseudo[1]
+        return sel["filtered_signal_fft"], sel["filtered_phase_fft"]
+
+    (ref_amp, ref_ph), (samp_amp, samp_ph) = pick("ref"), pick("samp")
+    n, alpha, kappa = calculate_optical_properties(
+        samp_amp, samp_ph, ref_amp, ref_ph, final.freq, float(optical["thickness"]))
+    return dict(refractive_index=n, absorption_coefficient=alpha, extinction_coefficient=kappa)
+
+
+#: :func:`gather_publish`'s optical selection where the caller names none
+_GATHER_OPTICAL = dict(ref_mode="none", samp_mode="pixel", ref_idx=0, samp_idx=0, thickness=1.0)
+
+
+def gather_publish(raw: ScanCube, raw_fd: ScanCube, filtered: ScanCube, masks, pixel,
+                   avg_fourier: bool, optical: Optional[dict] = None) -> dict[str, np.ndarray]:
+    """Every published series of three whole, materialized slots (the raw
+    one, the raw spectrum's, the final one) without a pipeline, in one
+    device-to-host transfer: the JAX package's standalone publish. Unlike
+    :meth:`Publisher.publish`, the ROI spectra are masked means of the
+    final slot's own amplitudes and phases, and the pixel-mean spectra are
+    the final slot's. ``masks``: (R, X, Y) f32 on the final slot's grid,
+    host numpy or a tensor (R may be 0); ``pixel`` at native resolution;
+    ``optical`` as :meth:`Publisher.publish`'s, with ``ref_mode`` "none"
+    (the default) for no n/alpha/kappa."""
+    masks = torch.as_tensor(masks, dtype=torch.float32, device=filtered.device)
+    roi_amp = masked_mean_stack(filtered.amplitudes, masks)
+    roi_ph = masked_mean_stack(filtered.phases, masks)
+    n_time = filtered.n_time
+    if avg_fourier:
+        # ROI traces from polar means (math_tools.rs:496-529)
+        roi_trace = (polar_irfft(roi_amp, roi_ph, n_time) if masks.shape[0]
+                     else roi_amp.new_zeros((0, n_time)))
+        avg_signal = filtered.avg_data
+    else:
+        roi_trace = masked_mean_stack(filtered.data, masks)
+        avg_signal = masked_pixel_mean(filtered.data, filtered.valid_wh)
+    image = intensity_image(filtered.data)
+    if filtered.scaling > 1:
+        image = upscale_image(image, filtered.scaling)
+    sel = _selection(dict(raw=raw, raw_fd=raw_fd, final=filtered), pixel, None)
+    reduced = dict(roi_amp=roi_amp, roi_ph=roi_ph)
+    out = dict(time=raw.time, frequencies=raw_fd.freq, filtered_time=filtered.time,
+               filtered_frequencies=filtered.freq, **sel, avg_signal=avg_signal,
+               avg_signal_fft=filtered.avg_signal_fft, avg_phase_fft=filtered.avg_phase_fft,
+               roi_trace=roi_trace, image=image, **reduced)
+    opt = {**_GATHER_OPTICAL, **(optical or {})}
+    if opt["ref_mode"] != "none":
+        out.update(_optical(opt, reduced, sel, filtered))
+    return _to_host(out)

@@ -124,6 +124,9 @@ class StageContext:
     time: Optional[np.ndarray] = None
     mesh: Optional[object] = None
 
+    def check_cancel(self) -> bool:
+        return self.cancelled()
+
 
 _REGISTRY: dict[str, type] = {}
 
