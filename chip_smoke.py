@@ -6,8 +6,10 @@
 Builds every hand-written kernel of the port from ``thz_image_explorer_tpu_
 torch/csrc`` with nvcc, holds each against its plain PyTorch version on the
 card, then drives the main path through the ``Explorer`` facade at the
-README's reference scan size (200x200x1024): open, filter chain, ROI set,
-slider updates and pixel clicks; then the 3-D voxel view of that scan as
+README's reference scan size (200x200x1024): open (the scan saved with
+``save_file`` and reopened with ``open_file`` through the port's own HDF5
+module, bit for bit), filter chain, ROI set, slider updates and pixel
+clicks; then the 3-D voxel view of that scan as
 the web view serves it (the live top-k view and one dense extraction); then
 the deconvolution Apply path on the same scan with a synthetic asymmetric
 PSF (25 bands, 500 iterations: one cluster-kernel launch per progress
@@ -22,16 +24,23 @@ degrees: T = 1488 and 1606, slider steps, clicks and tilt steps, a live
 view on the envelope's plain-load route, an Apply after tilt, the kernels
 at the new F and T, card vs CPU on a small tilted scan); the PSF tool on
 knife-edge traces of the reference fixture's shape (300 x 1001, 20 bands),
-its PSF exported, loaded and applied; a reference pulse loaded as the
+written as ``.thz`` files and loaded by the tool's loader, its PSF
+exported, loaded and applied; a reference pulse loaded as the
 optical reference, and skipped once a tilt changes the bin count; the
 web/CLI shell on the reference scan (``shell``: the worker with its
-coalescing FIFO, the two-phase open's preview, an HTTP server on loopback
+coalescing FIFO, the page's open of a dotTHz file and the two-phase open's
+preview, an HTTP server on loopback
 answering a 100-event slider drag, state polls, clicks, 3-D views, a web
 Apply and an aborted one, the web state against a direct Explorer, a small
 scan card vs CPU through two WebApps, and ``psf-diagnostics`` in a
-subprocess); a 512x512x1024 scan with one live 3-D view; and finally
+subprocess); a 512x512x1024 scan with one live 3-D view; dotTHz files
+(``dotthz_file``: at 200x200 and 512x512 the save, the host read in GB/s,
+the two-phase open from the file against ``open_arrays``, metadata load
+and update, a pulse); and finally
 multiple devices (``multi_device``: the pixel-grid mesh of ``parallel/``,
-its sharded update, Apply and live view on each rank's block, one rank over
+its sharded update, Apply and live view on each rank's block, each rank's
+block opened from a ``.npy`` and through ``open_scan_sharded`` from the same
+scan's ``.thz``, one rank over
 NCCL in this process against the single-device calls, 2 and 4 spawned ranks
 sharing the card over gloo against the one-rank results, 4 ranks at
 512x512x1024, and a sharded step downscaled by 3 against the single
@@ -471,6 +480,60 @@ def scan_metadata(d_mm):
     from thz_image_explorer_tpu_torch.io.dotthz import DotthzMetadata
 
     return DotthzMetadata(md={"dx [mm]": str(d_mm), "dy [mm]": str(d_mm)})
+
+
+def write_scan_file(path, t, cube, metadata):
+    """The scan as a user's dotTHz file holds it, written by the port's own
+    HDF5 writer: an "Image" group with the metadata, the time axis (ds1) and
+    the raw cube (ds2)."""
+    import dataclasses
+
+    from thz_image_explorer_tpu_torch.io import hdf5
+    from thz_image_explorer_tpu_torch.io.dotthz import write_group_metadata
+
+    with hdf5.File(path, "w") as f:
+        g = f.create_group("Image")
+        write_group_metadata(g, dataclasses.replace(metadata, ds_description=["time", "dataset"]))
+        g.create_dataset("ds1", data=np.asarray(t, np.float32))
+        g.create_dataset("ds2", data=np.asarray(cube, np.float32))
+    return path
+
+
+def write_knife_edge_file(path, positions, traces, times):
+    """One axis's knife-edge measurement as the PSF tool reads it: a group a
+    position, named ``Beam Width Measurement x=<position>`` (the shortest
+    decimal that reads back as the same float64), holding a (T, 2) ``[time,
+    signal]`` dataset; written by the port's own HDF5 writer."""
+    from thz_image_explorer_tpu_torch.io import hdf5
+
+    with hdf5.File(path, "w") as f:
+        for p, trace in zip(positions, traces):
+            name = f"Beam Width Measurement x={np.format_float_positional(p, unique=True)}"
+            f.create_group(name).create_dataset("ds1", data=np.stack([times, trace], 1))
+    return path
+
+
+def two_phase_open(app, send, width, height, n_time):
+    """``send()`` an open to the worker behind ``app``; (preview ms, final
+    ms), host ms from the send: the first state (the host preview, no device
+    results yet; the poll queues behind the open and ahead of the device
+    phase the open defers), and the first state with the device phase done."""
+    t0 = time.perf_counter()
+    send()
+    preview = app.state()
+    preview_ms = (time.perf_counter() - t0) * 1e3
+    assert preview["preview"] and preview["image"], "the first state carried no preview"
+    assert preview["image_shape"] == [width, height] and len(preview["plots"]["signal"])
+    assert not preview["plots"]["filtered_signal_fft"], "the preview has device results"
+    while time.perf_counter() - t0 < _SHELL_WAIT_S:
+        s = app.state()
+        if not s["preview"] and not s.get("stale"):
+            final_ms = (time.perf_counter() - t0) * 1e3
+            break
+    else:
+        raise AssertionError(f"the open's device phase did not end in {_SHELL_WAIT_S} s")
+    assert len(s["plots"]["filtered_signal_fft"]) == n_time // 2 + 1
+    return preview_ms, final_ms
 
 
 def synthetic_psf():
@@ -1852,6 +1915,89 @@ def shell_card_vs_cpu(t, cube):
     return worst, n
 
 
+def dotthz_file_size(t, cube, work, device="cuda"):
+    """The dotTHz file path at one scan size, each step timed in host ms
+    with a synchronize on each side: save_file, the host read of the file
+    (GB/s) and its cube bit for bit, the two-phase open's preview and final
+    from the file and from ``open_arrays`` in turns (arrays, file, file,
+    arrays), load_metadata, update_metadata twice (no cube byte changes,
+    the file grows by its new header only) and open_pulse. The file is
+    deleted at the end."""
+    import os
+
+    from thz_image_explorer_tpu_torch.io import dotthz, hdf5
+    from thz_image_explorer_tpu_torch.pipeline import Explorer
+    from thz_image_explorer_tpu_torch.pipeline.worker import ExplorerWorker
+    from thz_image_explorer_tpu_torch.web import WebApp
+
+    width, height, n_time = cube.shape
+    md = scan_metadata(0.5)
+    path = f"{work}/scan{width}.thzimg"
+    pulse_path = f"{work}/pulse{width}.thz"
+    rec = dict(shape=[width, height, n_time], cube_bytes=int(cube.nbytes))
+    try:
+        ex = Explorer(device=device)
+        ex.open_arrays(t, cube, md)
+        saved = ex.pipeline.input.data.cpu().numpy()  # what save_file writes
+        rec["save_ms"] = host_ms(lambda: ex.save_file(path), device)[0]
+        rec["file_bytes"] = os.path.getsize(path)
+        del ex
+        rec["read_ms"] = []
+        for _ in range(3):
+            ms, host = host_ms(lambda: dotthz.open_scan_host(path), device)
+            assert host.data.dtype == np.float32 and np.array_equal(host.data, saved), \
+                "the file's cube differs from the saved one"
+            rec["read_ms"].append(ms)
+            del host
+        rec["read_gb_s"] = cube.nbytes / (statistics.median(rec["read_ms"]) * 1e-3) / 1e9
+
+        worker = ExplorerWorker(device=device)
+        try:
+            app = WebApp(worker, load_settings=False)
+            routes = {"arrays": lambda: worker.send("open_arrays", t, cube, md),
+                      "file": lambda: app.command("open_file", [path], {})}
+            opens = {"arrays": [], "file": []}
+            for route in ("arrays", "file", "file", "arrays"):
+                opens[route].append(two_phase_open(app, routes[route], width, height, n_time))
+            opened = worker.call(lambda e: e.pipeline.input.data.cpu().numpy(),
+                                 timeout=_SHELL_WAIT_S)
+            assert np.array_equal(opened, saved)
+        finally:
+            worker.close()
+        for route, runs in opens.items():
+            rec[f"{route}_preview_ms"] = [p for p, _ in runs]
+            rec[f"{route}_final_ms"] = [f for _, f in runs]
+
+        rec["load_metadata_ms"], got = host_ms(lambda: dotthz.load_metadata(path), device)
+        assert got.md == md.md, got.md
+        got.md["note"] = "updated in place"
+        size = os.path.getsize(path)
+        # the first update's fsync also flushes the cube save_file left in the
+        # page cache; the second finds nothing else to flush
+        rec["update_metadata_ms"] = host_ms(lambda: dotthz.update_metadata(path, got), device)[0]
+        rec["update_grew_bytes"] = os.path.getsize(path) - size
+        assert 0 < rec["update_grew_bytes"] < 64 * 1024, rec["update_grew_bytes"]
+        assert dotthz.load_metadata(path).md["note"] == "updated in place"
+        got.md["note"] = "updated again"
+        rec["update_metadata_again_ms"] = host_ms(lambda: dotthz.update_metadata(path, got),
+                                                  device)[0]
+        assert dotthz.load_metadata(path).md["note"] == "updated again"
+        with hdf5.File(path) as f:
+            assert np.array_equal(f["Image"]["ds2"][()], saved), "update_metadata moved the cube"
+
+        trace = cube[width // 2, height // 2]
+        with hdf5.File(pulse_path, "w") as f:
+            f.create_group("Reference").create_dataset(
+                "ds1", data=np.stack([t, trace], 1).astype(np.float32))
+        rec["open_pulse_ms"], (pt, ps, _) = host_ms(lambda: dotthz.open_pulse(pulse_path), device)
+        assert np.array_equal(pt, t) and np.array_equal(ps, trace)
+    finally:
+        for p in (path, pulse_path):
+            if os.path.exists(p):
+                os.remove(p)
+    return rec
+
+
 def phase_shell(t, cube, seed):
     """The shell on the card: the worker with its coalescing FIFO,
     the two-phase open, the HTTP server, a slider drag, state polls, clicks,
@@ -1880,24 +2026,14 @@ def phase_shell(t, cube, seed):
     worker = ExplorerWorker(device="cuda")
     server = thread = None
     try:
-        # 1-2. the worker on the card; the open's preview, then its final
+        # 1-2. the worker on the card; the page's open command on the
+        # user's file: the open's preview, then its final
         app = WebApp(worker, load_settings=False)
+        path = write_scan_file(f"{tmp.name}/scan.thzimg", t, cube, scan_metadata(0.5))
         zero_counts()
-        t0 = time.perf_counter()
-        worker.send("open_arrays", t, cube, scan_metadata(0.5))
-        # the poll's closure queues behind the open and ahead of the device
-        # phase the open defers at the end of its host phase
-        preview = app.state()
-        rec["preview_ms"] = (time.perf_counter() - t0) * 1e3
-        assert preview["preview"] and preview["image"], "the first state carried no preview"
-        assert preview["image_shape"] == [width, height] and len(preview["plots"]["signal"])
-        assert not preview["plots"]["filtered_signal_fft"], "the preview has device results"
-        while time.perf_counter() - t0 < _SHELL_WAIT_S:
-            s = app.state()
-            if not s["preview"] and not s.get("stale"):
-                rec["final_ms"] = (time.perf_counter() - t0) * 1e3
-                break
-        assert "final_ms" in rec and len(s["plots"]["filtered_signal_fft"]) == len(t) // 2 + 1
+        rec["preview_ms"], rec["final_ms"] = two_phase_open(
+            app, lambda: app.command("open_file", [path], {}), width, height, len(t))
+        rec["opened"] = "the page's open_file command on a dotTHz file (io/hdf5.py)"
 
         # 3. the server on a free loopback port
         server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(app))
@@ -2286,6 +2422,8 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
         open_ms, (cube, img, _) = host_ms(lambda: open_arrays_sharded(
             t, mm, mesh, metadata=scan_metadata(0.5), device=device), device)
         res.update(open_ms=open_ms, block=list(mesh.block(None, cube.grid)))
+        if mode != "scale":
+            res["thz_open_ms"] = open_thz_block(npy, mesh, cube, img, device)
         if mode == "scale":
             out, step_ms, *_ = md_path(cube, t, mesh, device, n_steps=3, apply=False)
             assert bool(torch.isfinite(out["avg_amp"]).all()) and bool(torch.isfinite(out["img"]).all())
@@ -2337,6 +2475,22 @@ def _multi_device_rank(rank, world, store, npy, t, mode, outdir, device):
     finally:
         Path(outdir, f"rank{rank}.json").write_text(json.dumps(res))
         dist.destroy_process_group()
+
+
+def open_thz_block(npy, mesh, cube, img, device):
+    """This rank's block through ``open_scan_sharded`` from the dotTHz file
+    beside ``npy`` (the same scan and metadata): its cube, intensity image
+    and place equal to the ``.npy`` route's. Returns the open's host ms."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.parallel import open_scan_sharded
+
+    ms, (c, i, _) = host_ms(lambda: open_scan_sharded(str(Path(npy).with_suffix(".thz")),
+                                                      mesh, device=device), device)
+    assert torch.equal(c.data, cube.data) and torch.equal(i, img), "the .thz block differs"
+    assert (c.origin, c.grid, c.valid_wh, c.dx, c.dy) == \
+        (cube.origin, cube.grid, cube.valid_wh, cube.dx, cube.dy)
+    return ms
 
 
 def spawn_world(world, npy, t, mode, workdir, device="cuda"):
@@ -2460,6 +2614,7 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
     tmp = tempfile.TemporaryDirectory()
     npy = str(Path(tmp.name, "scan.npy"))
     np.save(npy, cube)
+    write_scan_file(str(Path(npy).with_suffix(".thz")), t, cube, scan_metadata(0.5))
     record = dict(shape=list(cube.shape), card=smi, rois=4, pixel=list(_MD_PIXEL),
                   filters=sorted(_MD_CFG), steps=_MD_STEPS,
                   apply="default DeconvolutionParams (25 bands, 500 iterations), synthetic PSF",
@@ -2478,6 +2633,7 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
         mm = np.load(npy, mmap_mode="r")
         block, img1, _ = open_arrays_sharded(t, mm, mesh, metadata=scan_metadata(0.5),
                                              device=device)
+        thz_open1_ms = open_thz_block(npy, mesh, block, img1, device)
         zero_counts()
         out1, ms1, apply1_ms, view1_ms, _ = md_path(block, t, mesh, device)
         counts1 = read_counts()
@@ -2495,6 +2651,7 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
         assert counts1[k] > 0, (k, counts1)
     record["world1"] = dict(
         backend=backend, mesh=[1, 1], bit_for_bit=equal1, max_abs_diff=diffs1,
+        thz_open_ms=thz_open1_ms,
         update_ms=ms1, update_ms_median=statistics.median(ms1[1:]),
         single_device_apply_ms=ref_apply_ms, apply_ms=apply1_ms, view_ms=view1_ms,
         view_again_ms=view1_again_ms, single_device_view_ms=ref_view_ms,
@@ -2565,6 +2722,8 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
                 envelope_bound_ms=env_b, envelope_bound_by=env_by)
         record[f"world{world}"] = dict(
             backend="gloo", mesh=list(pm.grid_shape(world)),
+            # each rank's open_scan_sharded of the .thz, equal to its .npy block
+            thz_open_ms_largest_rank=max(r["thz_open_ms"] for r in per_rank),
             # a rank's first update makes its process's cuFFT plans
             update_ms_first_largest_rank=max(r["update_ms"][0] for r in per_rank),
             update_ms_largest_rank=max(statistics.median(r["update_ms"][1:]) for r in per_rank),
@@ -3392,24 +3551,22 @@ def main() -> int:
     masks5 = torch.cat([torch.ones((1, n), device=dev), roi_masks.reshape(4, n)])
     max_abs_err, max_rel_err = phase_kernel_checks(pulse_spec, masks5, gen)
 
-    # 4. the main path at 200x200x1024 through the Explorer
-    try:
-        import h5py  # noqa: F401
-        have_h5py = True
-    except ImportError:
-        have_h5py = False
+    # 4. the main path at 200x200x1024 through the Explorer: the scan
+    # opened from arrays, saved with save_file and opened with open_file
+    # (the port's own HDF5 writer and reader), the cube bit for bit
     ex = Explorer(device="cuda")
     tmp = tempfile.TemporaryDirectory()
 
     def open_scan():
         ex.open_arrays(t, cube, scan_metadata(0.5))
-        if have_h5py:
-            path = f"{tmp.name}/scan.thzimg"
-            ex.save_file(path)
-            ex.open_file(path)
+        from_arrays = ex.pipeline.input.data.clone()
+        path = f"{tmp.name}/scan.thzimg"
+        ex.save_file(path)
+        ex.open_file(path)
+        assert torch.equal(ex.pipeline.input.data, from_arrays), "open_file differs from the arrays"
+        assert ex.file_path == path
 
-    hdf5 = ("round trip through save_file + open_file" if have_h5py
-            else "not run: h5py is not installed; opened with open_arrays")
+    hdf5 = "save_file + open_file (io/hdf5.py), the opened cube bit for bit the arrays'"
     sr.spectral_reduction_sums.launches = 0
     slider_ms, click_ms, slider_launch, click_launch = drive_commands(
         ex, open_scan, cube, 10, 20, np.random.default_rng(args.seed)
@@ -3844,13 +4001,24 @@ def main() -> int:
     from thz_image_explorer_tpu_torch.psf_tool.data_loader import KnifeEdgeMeasurement
     from thz_image_explorer_tpu_torch.psf_tool.data_loader import split_and_flip
 
-    knife_x = KnifeEdgeMeasurement(*knife_edge_traces(seed=args.seed))
-    knife_y = KnifeEdgeMeasurement(*knife_edge_traces(seed=args.seed + 1, width_scale=1.2))
+    # the traces written as the tool's .thz files (the port's writer), read
+    # back by the tool's loader: equal to the arrays before compute_psf
+    knife, knife_files = {}, {}
+    with tempfile.TemporaryDirectory() as knife_tmp:
+        for ax, seed_, scale_ in (("x", args.seed, 1.0), ("y", args.seed + 1, 1.2)):
+            arrays = knife_edge_traces(seed=seed_, width_scale=scale_)
+            path = write_knife_edge_file(f"{knife_tmp}/knife_{ax}.thz", *arrays)
+            load_ms, knife[ax] = timed(lambda: KnifeEdgeMeasurement.from_thz_file(path))
+            got = (knife[ax].positions, knife[ax].time_traces, knife[ax].times)
+            assert all(np.array_equal(a, b) for a, b in zip(got, arrays)), ax
+            knife_files[ax] = dict(load_ms=load_ms, bytes=Path(path).stat().st_size,
+                                   groups=len(arrays[0]))
+    knife_x, knife_y = knife["x"], knife["y"]
     tilt_ex.set_filter_active(TILT, False)  # the scan's own axis again
     zero_counts()
     psf_res, psf_ms, psf_filter_ms = drive_psf_tool(knife_x, knife_y, dev)
     tool = PsfToolApp(device=dev)
-    tool.result = psf_res  # the computed result (the app's thread reads h5py files)
+    tool.result = psf_res  # the computed result (the app's thread would compute it again)
     psf_tmp = tempfile.TemporaryDirectory()
     psf_path = f"{psf_tmp.name}/psf_tool.npz"
     assert tool.export_npz(psf_path)
@@ -3898,7 +4066,8 @@ def main() -> int:
     del tool_rl_inputs, tool_rl_ref
     widths = {ax: np.round(getattr(psf_res, ax).beam_fits.popt_xs[:, 1], 4).tolist()
               for ax in ("x", "y")}
-    emit(phase="psf_tool", card=smi, knife_edge=[300, 1001], bands=int(psf_res.filters.shape[0]),
+    emit(phase="psf_tool", card=smi, knife_edge=[300, 1001], knife_edge_files=knife_files,
+         bands=int(psf_res.filters.shape[0]),
          taps=int(psf_res.filters.shape[1]), params="default FilterParams (20 bands, log)",
          compute_psf_ms=psf_ms, device_filter_ms=psf_filter_ms,
          device_filter_calls=len(psf_filter_ms), cpu_compute_psf_ms=cpu_ms,
@@ -4000,6 +4169,16 @@ def main() -> int:
          envelope_bound_ms=env_bound_512,
          timing="device time behind a spin (device_ms)")
     del ex5, spec5, masks5_512, flat5
+    torch.cuda.empty_cache()
+
+    # 9a. dotTHz files: save, read, the two-phase open from the file against
+    # open_arrays, metadata load and update, a pulse, at 200x200 and 512x512
+    with tempfile.TemporaryDirectory() as file_tmp:
+        files = {f"grid{w}": dotthz_file_size(tt, cc, file_tmp)
+                 for w, tt, cc in ((width, t, cube), (512, t5, cube5))}
+    emit(phase="dotthz_file", card=smi, writer="io/hdf5.py (superblock v0, contiguous)",
+         **files, timing="host ms with a synchronize on each side; each file is read right "
+                         "after it was written (the page cache)")
     torch.cuda.empty_cache()
 
     # 9b. multiple devices: one rank over NCCL, 2 and 4 ranks sharing the

@@ -16,8 +16,8 @@ Usage::
     python -m thz_image_explorer_tpu_torch psf-diagnostics psf.npz
     python -m thz_image_explorer_tpu_torch serve [--device cpu] [scan.thzimg]
 
-Scan files need h5py; ``psf-diagnostics`` and ``serve`` without a scan do
-not.
+Scan files are read and written by the port's own HDF5 module
+(``io/hdf5.py``), so no subcommand needs h5py.
 """
 
 from __future__ import annotations

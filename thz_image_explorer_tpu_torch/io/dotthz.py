@@ -1,9 +1,9 @@
 """dotTHz (HDF5) reader/writer and the in-memory scan open.
 
 Port of ``thz_image_explorer_tpu/io/dotthz.py`` (the reference reads the
-format with the ``dotthz`` crate, ``io.rs:329-631``). ``h5py`` is imported
-inside the functions that touch files, so the package imports where h5py
-is missing; :func:`open_scan_arrays` needs no h5py at all.
+format with the ``dotthz`` crate, ``io.rs:329-631``). Files are read and
+written through the port's own HDF5 module (:mod:`.hdf5`: numpy, zlib and
+the standard library), so every file path runs where h5py is missing.
 
 dotTHz group-attribute conventions:
 
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from thz_image_explorer_tpu_torch.data import ScanCube, load_preprocess, make_cube, resolve_device
+from thz_image_explorer_tpu_torch.io import hdf5
 
 
 @dataclasses.dataclass
@@ -164,10 +165,8 @@ def clear_group_metadata(group):
 def _first_group(f) -> Optional[str]:
     """First top-level GROUP name; root-level datasets are skipped (the
     reference iterates groups only, ``io.rs:496-509``)."""
-    import h5py
-
     for name in sorted(f.keys()):
-        if isinstance(f[name], h5py.Group):
+        if hdf5.is_group(f[name]):
             return name
     return None
 
@@ -209,9 +208,7 @@ def open_scan_host(path: str) -> HostScan:
     """Read a scan file (``open_scan_from_thz``, ``io.rs:496-631``): first
     group only; first 1-D dataset is time, first 3-D dataset the cube;
     fallback to a 2-D ``[time, signal]`` single pulse as a 1x1 cube."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         gname = _first_group(f)
         if gname is None:
             raise ValueError(f"no groups in {path}")
@@ -223,12 +220,12 @@ def open_scan_host(path: str) -> HostScan:
         ds_names = sorted(group.keys())
         for name in ds_names:
             arr = group[name]
-            if isinstance(arr, h5py.Dataset) and arr.ndim == 1:
+            if hdf5.is_dataset(arr) and arr.ndim == 1:
                 time = np.asarray(arr[()], np.float32)
                 break
         for name in ds_names:
             arr = group[name]
-            if isinstance(arr, h5py.Dataset) and arr.ndim == 3:
+            if hdf5.is_dataset(arr) and arr.ndim == 3:
                 data = np.asarray(arr[()], np.float32)
                 break
         dx = dy = None
@@ -236,7 +233,7 @@ def open_scan_host(path: str) -> HostScan:
             # single-pulse fallback (io.rs:545-561)
             for name in ds_names:
                 arr = group[name]
-                if isinstance(arr, h5py.Dataset) and arr.ndim == 2:
+                if hdf5.is_dataset(arr) and arr.ndim == 2:
                     arr2 = np.asarray(arr[()], np.float32)
                     time = arr2[:, 0]
                     data = arr2[:, 1][None, None, :]
@@ -328,9 +325,7 @@ def save_scan(path: str, cube: ScanCube, metadata: DotthzMetadata):
     """Write time + cube under an "Image" group (``io.rs:406-433``). Only
     datasets named in ``ds_description`` as ``"time"`` / ``"dataset"`` are
     written, at their declared positions."""
-    import h5py
-
-    with h5py.File(path, "w") as f:
+    with hdf5.File(path, "w") as f:
         group = f.create_group("Image")
         write_group_metadata(group, metadata)
         if "time" in metadata.ds_description:
@@ -345,9 +340,7 @@ def save_scan(path: str, cube: ScanCube, metadata: DotthzMetadata):
 def open_pulse(path: str) -> tuple[np.ndarray, np.ndarray, DotthzMetadata]:
     """Read a single reference pulse: first group, first 2-D dataset, its
     columns ``[time, signal]`` (``io.rs:435-477``)."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         gname = _first_group(f)
         if gname is None:
             raise ValueError(f"no groups in {path}")
@@ -355,7 +348,7 @@ def open_pulse(path: str) -> tuple[np.ndarray, np.ndarray, DotthzMetadata]:
         metadata = read_group_metadata(group)
         for name in sorted(group.keys()):
             ds = group[name]
-            if isinstance(ds, h5py.Dataset) and ds.ndim == 2:
+            if hdf5.is_dataset(ds) and ds.ndim == 2:
                 arr = np.asarray(ds[()], np.float32)
                 return arr[:, 0], arr[:, 1], metadata
     raise ValueError(f"no 2-D dataset in {path}")
@@ -365,11 +358,9 @@ def _resolve_group(f, group_name: Optional[str]) -> str:
     """``"Image"`` when present, else the first group: metadata reads and
     writes target the group :func:`open_scan_host` read from (the
     reference looks up ``"Image"``, ``io.rs:363-380``)."""
-    import h5py
-
     if group_name is not None:
         return group_name
-    if "Image" in f and isinstance(f["Image"], h5py.Group):
+    if "Image" in f and hdf5.is_group(f["Image"]):
         return "Image"
     g = _first_group(f)
     if g is None:
@@ -379,18 +370,16 @@ def _resolve_group(f, group_name: Optional[str]) -> str:
 
 def load_metadata(path: str, group_name: Optional[str] = None) -> DotthzMetadata:
     """Metadata-only read (``io.rs:329-342``)."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         return read_group_metadata(f[_resolve_group(f, group_name)])
 
 
 def update_metadata(path: str, metadata: DotthzMetadata,
                     group_name: Optional[str] = None):
-    """Clear and rewrite the metadata in place (``io.rs:363-380``)."""
-    import h5py
-
-    with h5py.File(path, "r+") as f:
+    """Clear and rewrite the metadata in place (``io.rs:363-380``): the
+    group gets a new object header at the end of the file, and no dataset
+    byte moves (see :mod:`.hdf5`)."""
+    with hdf5.File(path, "r+") as f:
         group = f[_resolve_group(f, group_name)]
         clear_group_metadata(group)
         write_group_metadata(group, metadata)

@@ -16,9 +16,11 @@ grid to split and are refused; ``width``/``height`` metadata that disagree
 with the stored shape at the same pixel count reshape the cube, which
 needs a full read on every rank.
 
-h5py is imported inside :func:`open_scan_sharded`; the block read takes
-any array with numpy slicing, so :func:`open_arrays_sharded` serves a
-machine without h5py (a memory-mapped ``.npy``, for one).
+:func:`open_scan_sharded` reads the file through the port's own HDF5
+module (:mod:`..io.hdf5`), whose slice of a contiguous dataset reads only
+its bytes and of a chunked one only the chunks it touches; the block read
+takes any array with numpy slicing, so :func:`open_arrays_sharded` also
+serves a memory-mapped ``.npy``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from thz_image_explorer_tpu_torch.data import (
     make_cube,
     resolve_device,
 )
+from thz_image_explorer_tpu_torch.io import hdf5
 from thz_image_explorer_tpu_torch.io.dotthz import (
     DotthzMetadata,
     _first_group,
@@ -49,12 +52,10 @@ _REFUSE_1X1 = "multi-host loader needs a real pixel grid (got a 1x1 cube — use
 def _locate_datasets(group) -> tuple[Optional[str], Optional[str]]:
     """First 1-D dataset name (time) and first 3-D dataset name (cube) in
     sorted order (``io.rs:520-543``)."""
-    import h5py
-
     time_name = data_name = None
     for name in sorted(group.keys()):
         d = group[name]
-        if not isinstance(d, h5py.Dataset):
+        if not hdf5.is_dataset(d):
             continue
         if time_name is None and d.ndim == 1:
             time_name = name
@@ -69,10 +70,8 @@ def open_scan_sharded(path: str, mesh: Mesh, rank: Optional[int] = None, device=
     ``path``: ``(cube, intensity image, metadata)``, the cube and image of
     the block (see :func:`open_arrays_sharded`). ``device`` None means the
     card."""
-    import h5py
-
     device = resolve_device(device)
-    with h5py.File(path, "r") as f:
+    with hdf5.File(path, "r") as f:
         gname = _first_group(f)
         if gname is None:
             raise ValueError(f"no groups in {path}")
@@ -90,8 +89,8 @@ def open_arrays_sharded(time, dataset, mesh: Mesh, rank: Optional[int] = None,
                         where: str = "arrays"
                         ) -> tuple[ScanCube, torch.Tensor, DotthzMetadata]:
     """``rank``'s block of a scan given as a (T,) time axis and a raw
-    (X, Y, T) ``dataset`` that supports numpy slicing (an h5py dataset, a
-    ``np.memmap``, an array): ``(cube, intensity image, metadata)``.
+    (X, Y, T) ``dataset`` that supports numpy slicing (an :mod:`..io.hdf5`
+    dataset, a ``np.memmap``, an array): ``(cube, intensity image, metadata)``.
 
     Reads ``dataset[x0:x1, y0:y1, :]`` of :meth:`Mesh.block` and nothing
     else (the whole dataset only when the metadata reshape it);

@@ -6,8 +6,7 @@ file where every HDF5 group is one knife position, the position encoded in
 the group name (``"Beam Width Measurement x=-0.10"``); each group's first
 dataset is a 2-D ``[time, signal]`` array. Traces are sorted by position;
 ``split_and_flip`` halves + mirrors for double-knife-edge processing.
-``h5py`` is imported where a file is read, so the package imports where it
-is missing.
+Files are read through the port's own HDF5 module (:mod:`..io.hdf5`).
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from thz_image_explorer_tpu_torch.io import hdf5
 
 
 def _position_from_group_name(name: str) -> float | None:
@@ -42,12 +43,10 @@ class KnifeEdgeMeasurement:
 
     @staticmethod
     def from_thz_file(path: str) -> "KnifeEdgeMeasurement":
-        import h5py
-
         positions = []
         traces = []
         times = None
-        with h5py.File(path, "r") as f:
+        with hdf5.File(path, "r") as f:
             for group_name in f.keys():
                 pos = _position_from_group_name(group_name)
                 if pos is None:

@@ -375,21 +375,16 @@ class WebApp:
 
     def preview(self, path: str) -> dict:
         """A file's metadata without opening its scan: the open dialog's
-        information panel (``application.rs:861-900``). Needs h5py."""
-        from thz_image_explorer_tpu_torch.io import dotthz
+        information panel (``application.rs:861-900``). A file that cannot be
+        read raises (the request answers with the error)."""
+        from thz_image_explorer_tpu_torch.io import dotthz, hdf5
 
         md = dotthz.load_metadata(path)
-        out = {"description": md.description, "mode": md.mode, "version": md.version,
-               "instrument": md.instrument, "date": md.date, "user": md.user,
-               "md": dict(md.md)}
-        try:
-            import h5py
-
-            with h5py.File(path, "r") as f:
-                out["groups"] = list(f.keys())
-        except Exception:  # noqa: BLE001
-            out["groups"] = []
-        return out
+        with hdf5.File(path, "r") as f:
+            groups = f.keys()
+        return {"description": md.description, "mode": md.mode, "version": md.version,
+                "instrument": md.instrument, "date": md.date, "user": md.user,
+                "md": dict(md.md), "groups": groups}
 
     def drop(self, name: str, data: bytes) -> dict:
         """Drag-and-drop open (``left_panel.rs:281-322``): the browser gives
