@@ -36,7 +36,12 @@ scan card vs CPU through two WebApps, and ``psf-diagnostics`` in a
 subprocess); a 512x512x1024 scan with one live 3-D view; dotTHz files
 (``dotthz_file``: at 200x200 and 512x512 the save, the host read in GB/s,
 the two-phase open from the file against ``open_arrays``, metadata load
-and update, a pulse); and finally
+and update, a pulse; ``dotthz_features``: the same scans saved chunked one
+line a chunk with gzip + shuffle and with lzf + shuffle, read back bit for
+bit, the C LZF decoder (``csrc/lzf.c``, host C) beside its plain version,
+the 200x200 lzf file opened through the page and driven bit for bit
+against the contiguous file's open, and the committed HDF5 fixtures of
+``tests/data/torch_hdf5`` opened without h5py); and finally
 multiple devices (``multi_device``: the pixel-grid mesh of ``parallel/``,
 its sharded update, Apply and live view on each rank's block, each rank's
 block opened from a ``.npy`` and through ``open_scan_sharded`` from the same
@@ -482,10 +487,11 @@ def scan_metadata(d_mm):
     return DotthzMetadata(md={"dx [mm]": str(d_mm), "dy [mm]": str(d_mm)})
 
 
-def write_scan_file(path, t, cube, metadata):
+def write_scan_file(path, t, cube, metadata, **cube_storage):
     """The scan as a user's dotTHz file holds it, written by the port's own
     HDF5 writer: an "Image" group with the metadata, the time axis (ds1) and
-    the raw cube (ds2)."""
+    the raw cube (ds2; contiguous, or stored with h5py's ``chunks``,
+    ``compression``, ``compression_opts`` and ``shuffle``)."""
     import dataclasses
 
     from thz_image_explorer_tpu_torch.io import hdf5
@@ -495,7 +501,7 @@ def write_scan_file(path, t, cube, metadata):
         g = f.create_group("Image")
         write_group_metadata(g, dataclasses.replace(metadata, ds_description=["time", "dataset"]))
         g.create_dataset("ds1", data=np.asarray(t, np.float32))
-        g.create_dataset("ds2", data=np.asarray(cube, np.float32))
+        g.create_dataset("ds2", data=np.asarray(cube, np.float32), **cube_storage)
     return path
 
 
@@ -2217,6 +2223,236 @@ _MD_PIXEL_TOL = 1e-6
 _MD_SERIES = ("avg_signal", "roi_trace", "pix_sig", "pix_amp", "pix_ph", "avg_fft", "avg_amp",
               "avg_ph", "roi_amp", "roi_ph")
 _MD_PHASES = ("pix_ph", "avg_ph", "roi_ph")
+
+
+def published(ex):
+    """Every published plot series and the image, as host arrays."""
+    import dataclasses
+
+    out = {"image": np.array(ex.image)}
+    for field in dataclasses.fields(ex.plot):
+        value = getattr(ex.plot, field.name)
+        if isinstance(value, dict):
+            for key, (label, series) in value.items():
+                out[f"{field.name}/{key}/{label}"] = np.array(series)
+        elif isinstance(value, np.ndarray):
+            out[field.name] = np.array(value)
+    return out
+
+
+def same_published(a, b):
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+        for k in a)
+
+
+#: the filter mask bit of lzf in the smoke's lzf files (shuffle first, then lzf)
+_LZF_BIT = 1 << 1
+
+
+def lzf_decoder_timings(path):
+    """The C LZF decoder alone on every compressed chunk of ``path``'s cube
+    (host ms, median of 3 passes) and on one chunk (median of 5), against its
+    plain version on that chunk (one call); both give the chunk's bytes."""
+    from thz_image_explorer_tpu_torch.io import hdf5, lzf
+
+    with hdf5.File(path) as f:
+        d = f["Image"]["ds2"]
+        size = int(np.prod(d.chunks)) * d.dtype.itemsize
+        stored = [d.read_direct_chunk((i, 0, 0)) for i in range(d.shape[0])]
+    streams = [raw for mask, raw in stored if not mask & _LZF_BIT]
+    assert streams, "no chunk of the lzf file was compressed"
+    passes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = [lzf.decompress(s, size) for s in streams]
+        passes.append((time.perf_counter() - t0) * 1e3)
+    one = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        lzf.decompress(streams[0], size)
+        one.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    plain = lzf.decompress_plain(streams[0], size)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert plain == out[0] and all(len(o) == size for o in out)
+    return dict(chunks=len(stored), chunks_compressed=len(streams),
+                chunks_stored_raw=len(stored) - len(streams), chunk_bytes=size,
+                stream_bytes=sum(len(s) for s in streams), decode_ms=statistics.median(passes),
+                decode_ms_runs=passes,
+                decode_gb_s=len(streams) * size / (statistics.median(passes) * 1e-3) / 1e9,
+                one_chunk_ms=statistics.median(one), one_chunk_plain_ms=plain_ms)
+
+
+def dotthz_features_size(t, cube, work, device="cuda"):
+    """The scan saved by the port's writer chunked one scan line a chunk,
+    (1, H, T), twice: gzip level 4 + shuffle, and lzf + shuffle (without
+    the shuffle LZF does not shrink a line of noisy f32 samples, and every
+    chunk would be stored raw). Each file: save ms, its bytes against the
+    cube's, 3 reads through ``open_scan_host`` (ms, GB/s of cube bytes), the
+    cube bit for bit the contiguous file's; the lzf file's chunks through
+    the C decoder alone. Returns (record, {kind: path}); the paths are the
+    contiguous and lzf files, left for the caller to delete."""
+    import os
+
+    from thz_image_explorer_tpu_torch.io import dotthz
+
+    width, height, n_time = cube.shape
+    md = scan_metadata(0.5)
+    paths = {"contiguous": f"{work}/features{width}.thzimg"}
+    write_scan_file(paths["contiguous"], t, cube, md)
+    ref = dotthz.open_scan_host(paths["contiguous"]).data
+    rec = dict(shape=[width, height, n_time], cube_bytes=int(cube.nbytes),
+               chunks=[1, height, n_time], chunk_bytes=height * n_time * 4)
+    for kind, kw in (("gzip", dict(compression="gzip", compression_opts=4, shuffle=True)),
+                     ("lzf", dict(compression="lzf", shuffle=True))):
+        path = paths[kind] = f"{work}/features{width}_{kind}.thzimg"
+        r = rec[kind] = dict(filters=kw)
+        r["save_ms"] = host_ms(lambda: write_scan_file(path, t, cube, md,
+                                                       chunks=(1, height, n_time), **kw),
+                               device)[0]
+        r["file_bytes"] = os.path.getsize(path)
+        r["file_over_cube"] = r["file_bytes"] / cube.nbytes
+        r["read_ms"] = []
+        for _ in range(3):
+            ms, host = host_ms(lambda: dotthz.open_scan_host(path), device)
+            assert host.data.dtype == ref.dtype and host.data.tobytes() == ref.tobytes(), \
+                f"the {kind} file's cube differs from the contiguous file's"
+            r["read_ms"].append(ms)
+            del host
+        r["read_gb_s"] = cube.nbytes / (statistics.median(r["read_ms"]) * 1e-3) / 1e9
+        r["cube_bit_for_bit"] = True
+    rec["lzf_decoder"] = lzf_decoder_timings(paths["lzf"])
+    os.remove(paths.pop("gzip"))
+    return rec, paths
+
+
+def features_open(path, width, height, n_time, seed, device="cuda"):
+    """The page's ``open_file`` of ``path`` (two-phase: preview and final
+    ms), then, on the worker's Explorer, the main path's filters, ROIs and
+    optical selection, 3 slider steps and 5 clicks: each command's ms, its
+    specred launches and what it published."""
+    from thz_image_explorer_tpu_torch.ops.specred import spectral_reduction_sums as sr
+    from thz_image_explorer_tpu_torch.pipeline.worker import ExplorerWorker
+    from thz_image_explorer_tpu_torch.web import WebApp
+
+    worker = ExplorerWorker(device=device)
+    try:
+        app = WebApp(worker, load_settings=False)
+        preview_ms, final_ms = two_phase_open(
+            app, lambda: app.command("open_file", [path], {}), width, height, n_time)
+
+        def drive(ex):
+            for uuid in ("time_band_pass_before_fft", "frequency_band_pass", "water_vapor_notch"):
+                ex.set_filter_active(uuid, True)
+            for i, poly in enumerate(roi_polygons(width, height)):
+                ex.add_roi(f"roi-{i}", f"ROI {i}", poly)
+            ex.set_reference("ROI 0")
+            ex.set_sample("Selected Pixel")
+            rng = np.random.default_rng(seed)
+            cmds = [("slider", lambda i=i: ex.set_fft_window_low(1.0 + 0.05 * (i + 1)))
+                    for i in range(3)]
+            cmds += [("click", lambda x=int(rng.integers(width)), y=int(rng.integers(height)):
+                      ex.set_selected_pixel(x, y)) for _ in range(5)]
+            steps = []
+            for kind, cmd in cmds:
+                ms, launches = command_ms(cmd, lambda: sr.launches)
+                steps.append(dict(kind=kind, ms=ms, specred=launches, published=published(ex)))
+            return steps
+
+        steps = worker.call(drive, timeout=_SHELL_WAIT_S)
+    finally:
+        worker.close()
+    return preview_ms, final_ms, steps
+
+
+def phase_dotthz_features(t, cube, t5, cube5, seed, device="cuda"):
+    """The ``dotthz_features`` phase: chunked gzip and lzf files at both
+    sizes, the 200² lzf file opened through the page and driven against the
+    contiguous file's open (its launch counts zeroed just before and read
+    just after), and the committed fixtures."""
+    import os
+
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        for w, tt, cc in ((cube.shape[0], t, cube), (cube5.shape[0], t5, cube5)):
+            rec, paths = dotthz_features_size(tt, cc, work, device)
+            out[f"grid{w}"] = rec
+            if cc is cube:
+                width, height, n_time = cube.shape
+                runs = {}
+                for kind in ("contiguous", "lzf"):
+                    if kind == "lzf":
+                        zero_counts()
+                    runs[kind] = features_open(paths[kind], width, height, n_time, seed, device)
+                launches = read_counts()
+                (c_pre, c_fin, c_steps), (z_pre, z_fin, z_steps) = runs["contiguous"], runs["lzf"]
+                for a, b in zip(c_steps, z_steps):
+                    assert same_published(a["published"], b["published"]), \
+                        f"the lzf file's {a['kind']} published other series than the contiguous"
+                per = {k: [s["specred"] for s in z_steps if s["kind"] == k]
+                       for k in ("slider", "click")}
+                assert per["slider"] == [1, 1, 1] and per["click"] == [0] * 5, per
+                assert launches["specred"] > 0, launches
+                out["main_path_lzf"] = dict(
+                    shape=[width, height, n_time], launches=launches,
+                    specred_per_slider_step=per["slider"], specred_per_click=per["click"],
+                    series_and_image_bit_for_bit=True,
+                    series_compared=len(z_steps[0]["published"]),
+                    lzf=dict(preview_ms=z_pre, final_ms=z_fin,
+                             slider_ms=[s["ms"] for s in z_steps if s["kind"] == "slider"],
+                             click_ms=[s["ms"] for s in z_steps if s["kind"] == "click"]),
+                    contiguous=dict(preview_ms=c_pre, final_ms=c_fin,
+                                    slider_ms=[s["ms"] for s in c_steps if s["kind"] == "slider"],
+                                    click_ms=[s["ms"] for s in c_steps if s["kind"] == "click"]))
+            for p in paths.values():
+                os.remove(p)
+    out["fixtures"] = check_fixtures()
+    return out
+
+
+def check_fixtures():
+    """The committed fixtures of ``tests/data/torch_hdf5`` (h5py's
+    libver="latest" chunk indexes, lzf, SWMR files, bool, enum, compound
+    and array metadata, string notes) opened without h5py: every dataset
+    equal to its regeneration from the seed with numpy, the scan's cube and
+    time through ``open_scan_host``, every metadata field the JAX package's
+    string in ``expected.json``."""
+    import dataclasses
+    import importlib.util
+
+    from thz_image_explorer_tpu_torch.io import dotthz, hdf5
+
+    here = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_hdf5_fixtures", here / "scripts" / "make_torch_hdf5_fixtures.py")
+    fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixtures)
+    folder = here / "tests" / "data" / "torch_hdf5"
+    expected = json.loads((folder / "expected.json").read_text())
+    arrays = fixtures.fixture_arrays(expected["seed"])
+    rec = {}
+    for name in fixtures.FILES:
+        path = str(folder / name)
+        want = arrays[name]
+        t0 = time.perf_counter()
+        host = dotthz.open_scan_host(path)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        assert host.data.tobytes() == want["ds2"].tobytes(), f"{name}: the cube differs"
+        assert host.time.tobytes() == want["ds1"].tobytes(), f"{name}: the time axis differs"
+        with hdf5.File(path) as f:
+            for key, value in want.items():
+                got = f["Image"][key][()]
+                same = (got == value) if isinstance(value, bytes) else (
+                    got.dtype == value.dtype and got.shape == value.shape
+                    and (got.tolist() == value.tolist() if value.dtype == object
+                         else got.tobytes() == value.tobytes()))
+                assert same, f"{name}: {key} differs from its regeneration"
+        md = dataclasses.asdict(dotthz.load_metadata(path))
+        assert md == expected["files"][name]["metadata"], f"{name}: metadata {md}"
+        rec[name] = dict(open_ms=open_ms, datasets=len(want), metadata_fields=len(md["md"]),
+                         equal=True)
+    return rec
 
 
 def sync(device):
@@ -4179,6 +4415,21 @@ def main() -> int:
     emit(phase="dotthz_file", card=smi, writer="io/hdf5.py (superblock v0, contiguous)",
          **files, timing="host ms with a synchronize on each side; each file is read right "
                          "after it was written (the page cache)")
+    torch.cuda.empty_cache()
+
+    # 9a'. chunked dotTHz files: gzip + shuffle and lzf + shuffle, one scan
+    # line a chunk, at 200x200 and 512x512; the 200x200 lzf file opened
+    # through the page and driven against the contiguous file's open; the
+    # committed fixtures of h5py's other formats
+    features = phase_dotthz_features(t, cube, t5, cube5, args.seed)
+    emit(phase="dotthz_features", card=smi,
+         writer="io/hdf5.py create_dataset(chunks=(1, H, T), compression=..., shuffle=True): "
+                "superblock v0, v1 B-tree, filter pipeline v1",
+         lzf_source="thz_image_explorer_tpu_torch/csrc/lzf.c",
+         lzf_replaces="h5py's lzf filter (lzf_filter.c with liblzf), host C",
+         **features, timing="host ms with a synchronize on each side; each file is read right "
+                            "after it was written (the page cache); the lzf decoder's ms are "
+                            "host time of ctypes calls, its plain version one Python call")
     torch.cuda.empty_cache()
 
     # 9b. multiple devices: one rank over NCCL, 2 and 4 ranks sharing the

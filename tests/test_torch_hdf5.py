@@ -237,9 +237,9 @@ def test_save_scan_reads_in_jax_and_h5py(tmp_path, monkeypatch):
     assert jmd.get_rois() == [("roi-a", [(1, 1), (8, 1), (8, 7)])]
 
 
-def _h5py_scan(path, libver, chunks=None):
+def _h5py_scan(path, libver, chunks=None, maxshape=None):
     """A scan written by h5py in the given format, its cube chunked and
-    compressed when ``chunks`` is given."""
+    compressed when ``chunks`` is given (growable to ``maxshape``)."""
     t, cube = synthetic_scan(width=9, height=7, n_time=32)
     md = {"dx [mm]": "0.5", "dy [mm]": "0.5", "width": "9", "height": "7"}
     with h5py.File(path, "w", libver=libver) as f:
@@ -249,7 +249,8 @@ def _h5py_scan(path, libver, chunks=None):
                      **{f"md{i + 1}": v for i, v in enumerate(md.values())}}.items():
             g.attrs[k] = v
         g.create_dataset("ds1", data=t.astype(np.float32))
-        kw = dict(chunks=chunks, compression="gzip", shuffle=True) if chunks else {}
+        kw = dict(chunks=chunks, compression="gzip", shuffle=True, maxshape=maxshape) \
+            if chunks else {}
         g.create_dataset("ds2", data=cube.astype(np.float32), **kw)
     return cube.astype(np.float32)
 
@@ -303,19 +304,53 @@ def test_update_metadata_in_place(tmp_path, fmt):
 def _lzf(path):
     with h5py.File(path, "w") as f:
         f.create_dataset("d", data=np.arange(100.0), chunks=(10,), compression="lzf")
-    return lambda f: f["d"]
+    return lambda f: f["d"][()], np.arange(100.0)
 
 
 def _extensible(path):
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("d", data=np.arange(100.0), chunks=(10,), maxshape=(None,))
-    return lambda f: f["d"]
+    return lambda f: f["d"][()], np.arange(100.0)
 
 
 def _compound_attr(path):
+    value = np.zeros((), dtype=[("a", "f4"), ("b", "i4")])
     with h5py.File(path, "w") as f:
-        f.attrs["c"] = np.zeros((), dtype=[("a", "f4"), ("b", "i4")])
-    return lambda f: f.attrs["c"]
+        f.attrs["c"] = value
+    return lambda f: f.attrs["c"], value[()]
+
+
+@pytest.mark.parametrize("make", [_lzf, _extensible, _compound_attr],
+                         ids=["lzf", "extensible_array", "compound_attribute"])
+def test_reads_what_it_once_refused(tmp_path, make):
+    """The lzf filter, the extensible-array chunk index and a compound
+    attribute, refused before, read as h5py reads them."""
+    path = tmp_path / "once_refused.h5"
+    read, want = make(path)
+    with hdf5.File(path) as f, h5py.File(path, "r") as h:
+        got, theirs = read(f), read(h)
+    assert type(got) is type(theirs) is type(want)
+    assert got.dtype == theirs.dtype and got.tobytes() == theirs.tobytes() == want.tobytes()
+
+
+def _scaleoffset(path):
+    with h5py.File(path, "w") as f:
+        f.create_dataset("d", data=np.arange(100.0), chunks=(10,), scaleoffset=2)
+    return lambda f: f["d"][()]
+
+
+def _reference_attr(path):
+    with h5py.File(path, "w") as f:
+        f.create_group("g")
+        f.attrs.create("r", f["g"].ref, dtype=h5py.ref_dtype)
+    return lambda f: f.attrs["r"]
+
+
+def _vlen_sequence(path):
+    with h5py.File(path, "w") as f:
+        d = f.create_dataset("d", (2,), dtype=h5py.vlen_dtype(np.int32))
+        d[0], d[1] = [1, 2], [3]
+    return lambda f: f["d"][()]
 
 
 def _truncated(path):
@@ -346,13 +381,13 @@ def _bad_fletcher32(path):
 
 
 @pytest.mark.parametrize("make,match", [
-    (_lzf, "unsupported HDF5 feature: filter lzf"),
-    (_extensible, "unsupported HDF5 feature: extensible-array chunk index"),
-    (_compound_attr, "unsupported HDF5 feature: compound datatype"),
+    (_scaleoffset, "unsupported HDF5 feature: filter scale-offset"),
+    (_reference_attr, "unsupported HDF5 feature: reference datatype"),
+    (_vlen_sequence, "unsupported HDF5 feature: variable-length sequence type"),
     (_truncated, "truncated file"),
     (_bad_checksum, "checksum mismatch in object header"),
     (_bad_fletcher32, "fletcher32 checksum mismatch"),
-], ids=["lzf", "extensible_array", "compound_attribute", "truncated", "bad_checksum",
+], ids=["scaleoffset", "reference_attribute", "vlen_sequence", "truncated", "bad_checksum",
         "bad_fletcher32"])
 def test_refuses_what_it_cannot_read(tmp_path, make, match):
     path = tmp_path / "bad.h5"
@@ -387,21 +422,31 @@ def test_checksums_match_their_references():
         assert hdf5.fletcher32(data) == (s2 << 16) | s1, n
 
 
-@pytest.mark.parametrize("libver", LIBVERS)
-def test_a_block_read_decodes_only_its_chunks(tmp_path, libver, monkeypatch):
+@pytest.mark.parametrize("libver,maxshape", [("earliest", None), ("latest", None),
+                                             ("latest", (None, 7, 32)),
+                                             ("latest", (None, None, 32))],
+                         ids=["earliest", "latest", "extensible_array", "v2_btree"])
+def test_a_block_read_decodes_only_its_chunks(tmp_path, libver, maxshape, monkeypatch):
     """open_arrays_sharded on the reader's dataset: a rank's block decodes
-    the chunks it touches and no other."""
+    the chunks it touches and no other (a v1 B-tree, a fixed array, an
+    extensible array, a v2 B-tree)."""
     from thz_image_explorer_tpu_torch.parallel import mesh as pm
     from thz_image_explorer_tpu_torch.parallel import open_arrays_sharded
 
     path = tmp_path / "chunked.h5"
-    _h5py_scan(str(path), libver, chunks=(4, 4, 16))
+    _h5py_scan(str(path), libver, chunks=(4, 4, 16), maxshape=maxshape)
     decoded = []
     real = hdf5._decode_chunk
     monkeypatch.setattr(hdf5, "_decode_chunk",
                         lambda raw, *a: decoded.append(a[-1]) or real(raw, *a))
+    index = {"earliest": "btree1", "latest": "farray", "extensible_array": "earray",
+             "v2_btree": "btree2"}
     with hdf5.File(path) as f:
         g = f["Image"]
+        g["ds2"]._prepare()
+        assert g["ds2"]._index == index[libver if maxshape is None else
+                                        "v2_btree" if maxshape[1] is None else
+                                        "extensible_array"]
         whole = g["ds2"][()]
         n_all = len(decoded)
         for r in range(2):

@@ -1,15 +1,16 @@
 """The port's own HDF5 reader and writer for dotTHz files.
 
-Built on numpy, ``zlib`` and the standard library only, so that opening,
-saving and updating a scan needs no HDF5 library. The surface is the part
-of h5py's that the port uses: :class:`File` as a context manager; groups
-with ``keys()`` (ascending byte order of the names, as h5py lists them),
-``[name]``, ``in`` and ``attrs``; datasets with ``shape``, ``ndim``,
-``dtype``, ``[()]`` and basic slices; :func:`is_group` /
+Built on numpy, ``zlib``, the standard library and the package's own LZF
+codec, so that opening, saving and updating a scan needs no HDF5 library.
+The surface is the part of h5py's that the port uses: :class:`File` as a
+context manager; groups with ``keys()`` (ascending byte order of the
+names, as h5py lists them), ``[name]``, ``in`` and ``attrs``; datasets
+with ``shape``, ``ndim``, ``size``, ``maxshape``, ``dtype``, ``chunks``,
+``[()]``, basic slices and ``read_direct_chunk``; :func:`is_group` /
 :func:`is_dataset` in place of ``isinstance(obj, h5py.Group)``.
 
 Reading covers what h5py writes for the dotTHz layout with either
-``libver``:
+``libver``, in SWMR mode too:
 
 * superblocks v0-v3; object headers v1 (8-byte-aligned messages,
   continuation blocks) and v2 (``OHDR``/``OCHK``, lookup3 checksums);
@@ -18,28 +19,44 @@ Reading covers what h5py writes for the dotTHz layout with either
 * compact and dense attributes: a fractal heap with direct and indirect
   blocks (checksummed direct blocks too) and a v2 B-tree of any depth;
 * fixed- and floating-point types of either byte order, fixed-length
-  strings, variable-length strings in a global heap (``GCOL``);
-* scalar and simple dataspaces;
+  strings, variable-length strings in a global heap (``GCOL``: ``str`` in
+  attributes, ``bytes`` in datasets, as h5py reads them), enums (h5py's
+  boolean enum as numpy ``bool``, any other as its integer base),
+  compounds (nested, their offsets and itemsize kept; two float members
+  ``r``, ``i`` as complex) and array types (numpy subarrays);
+* scalar and simple dataspaces, with their maximum shapes;
 * compact, contiguous and chunked layouts, the chunks indexed by a v1
-  B-tree, a fixed array (paged or not) or a single-chunk index;
-* the deflate, shuffle and fletcher32 filters, the checksum checked.
+  B-tree, a single-chunk index, an implicit index, a fixed array (paged or
+  not), an extensible array (index block, super blocks, paged data blocks)
+  or a v2 B-tree; chunks never written read as the fill value;
+* the deflate, shuffle, fletcher32 (checksum checked) and lzf filters (lzf
+  in host C, ``csrc/lzf.c`` through :mod:`.lzf`), a chunk an optional filter
+  skipped (its filter mask bit set) read as stored.
 
 A contiguous dataset is read through ``np.memmap`` at its offset, so a
 slice reads only its bytes; a chunked one decodes only the chunks that a
-slice touches and crops the edge chunks. Anything else raises
-:class:`UnsupportedFeature` naming the HDF5 feature (other filters, the
-extensible-array and v2-B-tree chunk indices, external storage, compound,
-enum, reference and variable-length sequence types, committed datatypes,
-huge heap objects), and a damaged file raises :class:`HDF5Error` (a bad
-signature or checksum, a truncated structure), never a wrong array.
+slice touches and crops the edge chunks. As in h5py, every dataset is
+listed and opened with its shape; what this module cannot read raises
+:class:`UnsupportedFeature` naming the HDF5 feature only when the data (or
+``dtype``) are read: the szip, n-bit and scale-offset filters, external
+storage, virtual datasets, unfiltered partial edge chunks, null
+dataspaces, reference, opaque, bitfield and time types, variable-length
+sequences, committed datatypes, shared messages and huge or filtered
+fractal-heap objects. A damaged file raises :class:`HDF5Error` (a bad
+signature or checksum, a truncated structure, an lzf stream that does not
+decode to its chunk), never a wrong array.
 
 Writing (mode ``"w"``) makes what the port's callers create: superblock
-v0, symbol-table groups, contiguous datasets (integer and IEEE float
-types of either byte order) and attributes, a ``str`` as a
-variable-length UTF-8 string as h5py stores one, numbers as numeric
-scalars or arrays, ``np.bytes_`` as a fixed-length string. h5py reads the
-result; the default format was chosen because every HDF5 library since
-1.8 reads it and it needs no metadata checksums.
+v0, symbol-table groups, datasets (integer and IEEE float types of either
+byte order) and attributes, a ``str`` as a variable-length UTF-8 string as
+h5py stores one, numbers as numeric scalars or arrays, ``np.bytes_`` as a
+fixed-length string. A dataset is contiguous unless ``create_dataset`` is
+given h5py's ``chunks`` (with ``compression`` "gzip" or "lzf",
+``compression_opts``, ``shuffle``): then its chunks are indexed by a v1
+B-tree of 2K = 64 entries a node, as many levels as they need, behind a
+filter pipeline message v1, as h5py writes them under its default
+``libver``. h5py reads the result; the default format was chosen because
+every HDF5 library since 1.8 reads it and it needs no metadata checksums.
 
 Mode ``"r+"`` changes attributes, which is what ``update_metadata`` does.
 It never rewrites the file, in either format: a 512×512×1024 cube is
@@ -65,6 +82,8 @@ import zlib
 
 import numpy as np
 
+from thz_image_explorer_tpu_torch.io import lzf
+
 _SIGNATURE = b"\x89HDF\r\n\x1a\n"
 _M32 = 0xFFFFFFFF
 
@@ -75,6 +94,7 @@ _CONTINUATION, _SYMBOL_TABLE, _ATTR_INFO = 0x10, 0x11, 0x15
 
 _FILTER_NAMES = {1: "deflate", 2: "shuffle", 3: "fletcher32", 4: "szip", 5: "n-bit",
                  6: "scale-offset", 32000: "lzf"}
+_READ_FILTERS = (1, 2, 3, 32000)
 _TYPE_CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound", 7: "reference",
                      8: "enum", 10: "array"}
 # (precision, exponent location, exponent size, mantissa size) of IEEE types
@@ -442,18 +462,35 @@ class _Header:
 # -- datatypes, dataspaces, values -------------------------------------------
 
 class _Type:
-    """``kind`` "num" (a numpy dtype), "fstr" (fixed-length ``S`` dtype) or
-    "vstr" (variable-length string, ``size`` bytes per element on disk)."""
+    """A datatype as the reader sees it. ``dtype`` is the numpy dtype of the
+    stored elements (a compound's offsets and itemsize kept, an array type a
+    subarray dtype). ``kind`` "num" reads as ``dtype``; "bool" (h5py's
+    boolean enum) as numpy ``bool``; "vstr" (a variable-length string,
+    ``size`` bytes per element on disk: length, heap collection, index) as
+    ``str`` in attributes and ``bytes`` in datasets, as h5py reads them."""
 
     __slots__ = ("kind", "dtype", "size")
 
     def __init__(self, kind, dtype, size):
         self.kind, self.dtype, self.size = kind, dtype, size
 
+    @property
+    def result(self) -> np.dtype:
+        """The dtype h5py gives the elements."""
+        return {"num": self.dtype, "bool": np.dtype(bool), "vstr": np.dtype(object)}[self.kind]
+
+
+def _member_name(c: _Cursor, padded: bool) -> str:
+    end = c.data.index(b"\x00", c.pos)
+    raw = c.take(end - c.pos + 1)
+    if padded:
+        c.skip((-len(raw)) % 8)
+    return raw[:-1].decode("utf-8")
+
 
 def _datatype(c: _Cursor) -> _Type:
     b0 = c.uint(1)
-    cls = b0 & 0x0F
+    cls, version = b0 & 0x0F, b0 >> 4
     bits = c.uint(3)
     size = c.uint(4)
     order = ">" if bits & 1 else "<"
@@ -474,19 +511,80 @@ def _datatype(c: _Cursor) -> _Type:
             raise UnsupportedFeature(f"non-IEEE floating-point type of {size} bytes")
         return _Type("num", np.dtype(f"{order}f{size}"), size)
     if cls == 3:
-        return _Type("fstr", np.dtype(f"S{size}"), size)
+        return _Type("num", np.dtype(f"S{size}"), size)
+    if cls == 6:
+        return _compound(c, version, bits & 0xFFFF, size)
+    if cls == 8:
+        base = _datatype(c)
+        if base.kind != "num" or base.dtype.kind not in "iu":
+            raise UnsupportedFeature("enum datatype of a non-integer base")
+        n = bits & 0xFFFF
+        names = [_member_name(c, version < 3) for _ in range(n)]
+        values = np.frombuffer(c.take(n * base.size), base.dtype).tolist()
+        if dict(zip(names, values)) == {"FALSE": 0, "TRUE": 1}:
+            return _Type("bool", base.dtype, base.size)
+        return base
     if cls == 9:
         if bits & 0x0F != 1:
             raise UnsupportedFeature("variable-length sequence type")
         _datatype(c)  # the base type (characters); ASCII and UTF-8 both read as UTF-8
-        return _Type("vstr", None, size)
+        return _Type("vstr", np.dtype(f"V{size}"), size)
+    if cls == 10:
+        ndims = c.uint(1)
+        if version < 3:
+            c.skip(3)
+        dims = tuple(c.uint(4) for _ in range(ndims))
+        if version < 3:
+            c.skip(4 * ndims)  # permutation indices (unused by the library)
+        base = _datatype(c)
+        return _Type("num", np.dtype((_nested_dtype(base, "array"), dims)), size)
     raise UnsupportedFeature(f"{_TYPE_CLASS_NAMES.get(cls, f'class {cls}')} datatype")
 
 
+def _nested_dtype(t: _Type, where: str) -> np.dtype:
+    """A member's or element's numpy dtype inside a compound or array type."""
+    if t.kind == "vstr":
+        raise UnsupportedFeature(f"variable-length string inside an {where} datatype")
+    if t.kind == "bool" and t.size != 1:
+        raise UnsupportedFeature(f"boolean enum of {t.size} bytes inside an {where} datatype")
+    return t.result
+
+
+def _compound(c: _Cursor, version: int, n: int, size: int) -> _Type:
+    """A compound type as h5py maps it: its members at their offsets with the
+    type's itemsize, or a complex dtype for two float members named r and i."""
+    names, formats, offsets = [], [], []
+    for _ in range(n):
+        names.append(_member_name(c, version < 3))
+        if version < 3:
+            offsets.append(c.uint(4))
+        else:
+            offsets.append(c.uint(_limit_enc_size(size)))
+        dims = ()
+        if version == 1:
+            rank = c.uint(1)
+            c.skip(3 + 4 + 4)  # reserved, permutation, reserved
+            dims = tuple(c.uint(4) for _ in range(4))[:rank]
+        member = _nested_dtype(_datatype(c), "compound")
+        formats.append(np.dtype((member, dims)) if dims else member)
+    if names == ["r", "i"] and formats[0] == formats[1] and formats[0].kind == "f":
+        width = formats[0].itemsize
+        if offsets != [0, width] or size != 2 * width:
+            raise UnsupportedFeature("complex compound datatype with padding")
+        return _Type("num", np.dtype(f"c{size}").newbyteorder(formats[0].byteorder), size)
+    try:
+        dtype = np.dtype({"names": names, "formats": formats, "offsets": offsets,
+                          "itemsize": size})
+    except ValueError as e:
+        raise HDF5Error(f"bad compound datatype: {e}") from None
+    return _Type("num", dtype, size)
+
+
 def _dataspace(c: _Cursor) -> tuple:
-    """The shape (the maximum shape that may follow is not needed)."""
+    """(shape, maximum shape): an unlimited maximum is None; a null
+    dataspace has the shape None."""
     version, rank = c.uint(1), c.uint(1)
-    c.skip(1)  # flags
+    flags = c.uint(1)
     if version == 1:
         c.skip(5)
         kind = 1 if rank else 0
@@ -495,32 +593,43 @@ def _dataspace(c: _Cursor) -> tuple:
     else:
         raise UnsupportedFeature(f"dataspace version {version}")
     if kind == 2:
-        raise UnsupportedFeature("null dataspace")
-    return tuple(c.length() for _ in range(rank))
+        return None, None
+    shape = tuple(c.length() for _ in range(rank))
+    if not flags & 0x01:
+        return shape, shape
+    unlimited = (1 << (8 * c.lsize)) - 1
+    return shape, tuple(None if m == unlimited else m for m in (c.length() for _ in range(rank)))
 
 
-def _values(store: _Store, t: _Type, shape: tuple, raw: bytes):
-    """Decoded elements: a numpy scalar, ``np.bytes_`` or ``str`` for a
-    scalar dataspace, an array otherwise (as h5py returns them)."""
+def _elements(raw: bytes, t: _Type, shape: tuple) -> np.ndarray:
+    """Stored elements as an array of ``t.dtype`` (a subarray dtype adds its
+    dimensions at the end)."""
     n = int(np.prod(shape, dtype=np.int64))
     if len(raw) < n * t.size:
         raise HDF5Error(f"truncated data: {len(raw)} bytes for {n} elements of {t.size}")
+    return np.frombuffer(raw, t.dtype, n).reshape(tuple(shape) + t.dtype.shape)
+
+
+def _finish(store: _Store, t: _Type, arr: np.ndarray, text: bool):
+    """Stored elements as h5py returns them: a variable-length string as
+    ``str`` (``text``, attributes) or ``bytes`` (datasets), a boolean enum as
+    ``bool``; a 0-d result as its scalar."""
     if t.kind == "vstr":
-        out = []
-        for i in range(n):
-            c = _Cursor(raw, store.osize, store.lsize, "variable-length string", i * t.size)
-            length, coll, index = c.uint(4), c.addr(), c.uint(4)
-            if length == 0 or coll in (None, 0):
-                out.append("")
-                continue
-            out.append(store.gheap_object(coll, index)[:length].decode("utf-8"))
-        if shape == ():
-            return out[0]
-        arr = np.empty(n, object)
-        arr[:] = out
-        return arr.reshape(shape)
-    arr = np.frombuffer(raw, t.dtype, n).reshape(shape).copy()
-    return arr[()] if shape == () else arr
+        out = np.empty(arr.shape, object)
+        flat = out.reshape(-1)
+        for i, ref in enumerate(arr.reshape(-1).tolist()):
+            length = int.from_bytes(ref[:4], "little")
+            coll = int.from_bytes(ref[4:4 + store.osize], "little")
+            if length == 0 or coll in (0, (1 << (8 * store.osize)) - 1):
+                value = b""
+            else:
+                index = int.from_bytes(ref[4 + store.osize:8 + store.osize], "little")
+                value = store.gheap_object(coll, index)[:length]
+            flat[i] = value.decode("utf-8") if text else value
+        arr = out
+    elif t.kind == "bool":
+        arr = arr != 0
+    return arr[()] if arr.ndim == 0 else arr
 
 
 def _attribute(store: _Store, data: bytes):
@@ -541,7 +650,10 @@ def _attribute(store: _Store, data: bytes):
     tc = _Cursor(c.take(pad(type_size)), store.osize, store.lsize, f"attribute {name!r}")
     t = _datatype(tc)
     sc = _Cursor(c.take(pad(space_size)), store.osize, store.lsize, f"attribute {name!r}")
-    return name, _values(store, t, _dataspace(sc), data[c.pos:])
+    shape = _dataspace(sc)[0]
+    if shape is None:
+        raise UnsupportedFeature("null dataspace")
+    return name, _finish(store, t, _elements(data[c.pos:], t, shape).copy(), text=True)
 
 
 # -- fractal heap and v2 B-tree (dense links and attributes) -----------------
@@ -661,13 +773,13 @@ class _FractalHeap:
 
 
 def _btree2_records(store: _Store, addr: int):
-    """Every record of a v2 B-tree, in key order."""
+    """(record type, every record of a v2 B-tree in key order)."""
     where = f"v2 B-tree at {addr}"
     c = store.cursor_at_most(addr, 64, where)
     c.sig(b"BTHD")
     if c.uint(1) != 0:
         raise UnsupportedFeature("v2 B-tree version")
-    c.uint(1)  # record type
+    rtype = c.uint(1)
     node_size, rec_size, depth = c.uint(4), c.uint(2), c.uint(2)
     c.skip(2)
     root, root_nrec = c.addr(), c.uint(2)
@@ -711,7 +823,7 @@ def _btree2_records(store: _Store, addr: int):
 
     if root is not None and root_nrec:
         node(root, root_nrec, depth)
-    return out
+    return rtype, out
 
 
 # -- groups ------------------------------------------------------------------
@@ -862,7 +974,7 @@ class _Object:
                 heap_addr, name_tree = c.addr(), c.addr()
                 if heap_addr is not None:
                     heap = _FractalHeap(store, heap_addr)
-                    for rec in _btree2_records(store, name_tree):
+                    for rec in _btree2_records(store, name_tree)[1]:
                         if rec[8] & 0x02:
                             raise UnsupportedFeature("shared attribute message")
                         data = heap.get(rec[:8])[0]
@@ -912,7 +1024,7 @@ class Group(_Object):
                     heap_addr, name_tree = c.addr(), c.addr()
                     if heap_addr is not None:
                         heap = _FractalHeap(store, heap_addr)
-                        for rec in _btree2_records(store, name_tree):
+                        for rec in _btree2_records(store, name_tree)[1]:
                             data, obj_at, region = heap.get(rec[4:])
                             name, addr, at, kind = _link(store, data)
                             site = None if (at is None or obj_at is None) else obj_at + at
@@ -948,118 +1060,177 @@ class Group(_Object):
 
 
 class Dataset(_Object):
-    """A dataset of an open file: ``shape``, ``ndim``, ``dtype`` and
-    reads through ``[...]``."""
+    """A dataset of an open file: ``shape``, ``ndim``, ``size``,
+    ``maxshape`` and ``dtype``, and reads through ``[...]``.
+
+    As in h5py, a dataset is listed and opened with its shape whatever its
+    storage: what this module cannot read (a layout, a chunk index, a
+    filter, external storage, a type) raises :class:`UnsupportedFeature`,
+    naming it, only when the data are read (and from ``dtype`` for a type
+    it cannot map)."""
 
     def __init__(self, file, header, link):
         super().__init__(file, header, link)
         store = file._store
+        self._where = f"dataset at {header.addr}"
+        m = header.one(_DATASPACE)
+        if m is None:
+            raise HDF5Error(f"no dataspace message in {self._where}")
+        self.shape, self.maxshape = _dataspace(_Cursor(m.data, store.osize, store.lsize,
+                                                       self._where))
+        self.ndim = 0 if self.shape is None else len(self.shape)
+        self.size = 0 if self.shape is None else int(np.prod(self.shape, dtype=np.int64))
+        self._t = None
+        self._kind = None  # the storage, once _prepare has read it
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._type().result
+
+    @property
+    def chunks(self):
+        """The chunk shape of a chunked dataset, else None."""
+        self._prepare()
+        return self._chunks
+
+    def _type(self) -> _Type:
+        if self._t is None:
+            m = self._header.one(_DATATYPE)
+            if m is None:
+                raise HDF5Error(f"no datatype message in {self._where}")
+            store = self.file._store
+            self._t = _datatype(_Cursor(m.data, store.osize, store.lsize, self._where))
+        return self._t
+
+    def _prepare(self):
+        """Read what a read needs, once."""
+        if self._kind is not None:
+            return
+        header = self._header
+        if self.shape is None:
+            raise UnsupportedFeature("null dataspace")
         if header.find(_EXTERNAL):
             raise UnsupportedFeature("external data storage")
-        where = f"dataset at {header.addr}"
-        self.shape = _dataspace(_Cursor(header.one(_DATASPACE).data, store.osize, store.lsize,
-                                        where))
-        t = _datatype(_Cursor(header.one(_DATATYPE).data, store.osize, store.lsize, where))
-        if t.kind == "vstr":
-            raise UnsupportedFeature("variable-length string dataset")
-        self.dtype = t.dtype
-        self.ndim = len(self.shape)
-        self.size = int(np.prod(self.shape, dtype=np.int64))
-        self._fill = _fill_value(header, t)
+        t = self._type()
+        self._fill = _fill_raw(header, t)
         self._filters = _filters(header)
-        self._layout(header.one(_LAYOUT), store, where)
+        self._kind = self._layout(header.one(_LAYOUT), t)
 
-    def _layout(self, m, store, where):
+    def _layout(self, m, t: _Type) -> str:
+        store, where = self.file._store, self._where
         if m is None:
             raise HDF5Error(f"no layout message in {where}")
         c = _Cursor(m.data, store.osize, store.lsize, where)
         version = c.uint(1)
-        self.chunks = None
+        self._chunks = None
         if version in (1, 2):
             rank, cls = c.uint(1), c.uint(1)
             c.skip(5)
             addr = c.addr() if cls != 0 else None
             dims = [c.uint(4) for _ in range(rank)]
             if cls == 2:
-                self._chunk_layout(dims[:-1], "btree1", addr)
-            elif cls == 1:
-                self._kind, self._addr = "contiguous", addr
+                return self._chunk_layout(dims, "btree1", addr, t)
+            if cls == 1:
+                kind, self._addr = "contiguous", addr
             else:
-                self._kind, self._data = "compact", c.take(c.uint(4))
-            return
-        if version not in (3, 4):
+                kind, self._data = "compact", c.take(c.uint(4))
+        elif version not in (3, 4):
             raise UnsupportedFeature(f"data layout version {version}")
-        cls = c.uint(1)
-        if cls == 0:
-            self._kind, self._data = "compact", c.take(c.uint(2))
-        elif cls == 1:
-            self._kind, self._addr = "contiguous", c.addr()
-            c.length()
-        elif cls == 2 and version == 3:
-            rank = c.uint(1)
-            addr = c.addr()
-            dims = [c.uint(4) for _ in range(rank)]
-            self._chunk_layout(dims[:-1], "btree1", addr)
-        elif cls == 2:
-            flags, rank, enc = c.uint(1), c.uint(1), c.uint(1)
-            dims = [c.uint(enc) for _ in range(rank)]
-            index = c.uint(1)
-            if flags & 0x01:
-                raise UnsupportedFeature("unfiltered partial edge chunks")
-            if index == 1:
-                filtered = (c.length(), c.uint(4)) if flags & 0x02 else None
-                self._chunk_layout(dims[:-1], "single", c.addr(), filtered)
-            elif index == 3:
-                c.skip(1)  # page bits (the fixed array's header has them)
-                self._chunk_layout(dims[:-1], "farray", c.addr())
-            else:
-                names = {2: "implicit chunk index", 4: "extensible-array chunk index",
-                         5: "v2 B-tree chunk index"}
-                raise UnsupportedFeature(names.get(index, f"chunk index type {index}"))
-        elif cls == 3:
-            raise UnsupportedFeature("virtual dataset layout")
         else:
-            raise HDF5Error(f"unknown layout class {cls} in {where}")
-        if self._kind == "contiguous" and self._addr is not None:
-            end = self._addr + self.size * self.dtype.itemsize
-            if self.file._store.base + end > self.file._store.size:
+            cls = c.uint(1)
+            if cls == 0:
+                kind, self._data = "compact", c.take(c.uint(2))
+            elif cls == 1:
+                kind, self._addr = "contiguous", c.addr()
+                c.length()
+            elif cls == 2 and version == 3:
+                rank = c.uint(1)
+                addr = c.addr()
+                return self._chunk_layout([c.uint(4) for _ in range(rank)], "btree1", addr, t)
+            elif cls == 2:
+                flags, rank, enc = c.uint(1), c.uint(1), c.uint(1)
+                dims = [c.uint(enc) for _ in range(rank)]
+                index = c.uint(1)
+                if flags & 0x01:
+                    raise UnsupportedFeature("unfiltered partial edge chunks")
+                if index not in _CHUNK_INDEX:
+                    raise UnsupportedFeature(f"chunk index type {index}")
+                name, n_params = _CHUNK_INDEX[index]
+                filtered = (c.length(), c.uint(4)) if index == 1 and flags & 0x02 else None
+                c.skip(n_params)  # the index's own header repeats them
+                return self._chunk_layout(dims, name, c.addr(), t, filtered)
+            elif cls == 3:
+                raise UnsupportedFeature("virtual dataset layout")
+            else:
+                raise HDF5Error(f"unknown layout class {cls} in {where}")
+        if kind == "contiguous" and self._addr is not None:
+            end = self._addr + self.size * t.size
+            if store.base + end > store.size:
                 raise HDF5Error(f"truncated file: the data of {where} ends at {end}, "
-                                f"the file at {self.file._store.size}")
-        if self._kind == "compact" and len(self._data) < self.size * self.dtype.itemsize:
+                                f"the file at {store.size}")
+        if kind == "compact" and len(self._data) < self.size * t.size:
             raise HDF5Error(f"truncated compact data in {where}")
+        return kind
 
-    def _chunk_layout(self, dims, index, addr, filtered=None):
-        self._kind, self._index, self._addr, self._single = "chunked", index, addr, filtered
-        self.chunks = tuple(dims)
+    def _chunk_layout(self, dims, index, addr, t: _Type, filtered=None) -> str:
+        if len(dims) != self.ndim + 1 or dims[-1] != t.size or 0 in dims:
+            raise HDF5Error(f"chunk dimensions {dims} do not fit {self._where} "
+                            f"({self.ndim} dimensions of {t.size}-byte elements)")
+        self._index, self._addr, self._single = index, addr, filtered
+        self._chunks = tuple(dims[:-1])
         self._chunk_map = None
-        if len(dims) != self.ndim:
-            raise HDF5Error("chunk rank differs from the dataspace's")
+        return "chunked"
+
+    def _filled(self, shape) -> np.ndarray:
+        out = np.empty(shape, self._t.dtype)
+        out[...] = np.frombuffer(self._fill, self._t.dtype, 1)[0]
+        return out
 
     def __getitem__(self, key):
+        self._prepare()
+        t, store = self._t, self.file._store
         sel = _selection(key, self.shape)
-        out_shape = tuple(len(range(*s)) for s in sel if not isinstance(s, int))
         if self._kind == "compact":
-            arr = np.frombuffer(self._data, self.dtype, self.size).reshape(self.shape)
-            return arr[_np_key(sel)].copy()
-        if self._kind == "contiguous":
-            if self._addr is None:
-                return np.full(out_shape, self._fill, self.dtype)[()]
-            if self.size == 0:
-                return np.empty(out_shape, self.dtype)
-            store = self.file._store
-            mm = np.memmap(store.fh, self.dtype, "r", store.base + self._addr, self.shape)
+            arr = _elements(self._data, t, self.shape)[_np_key(sel)].copy()
+        elif self._kind == "chunked":
+            arr = self._read_chunked(sel)
+        elif self._addr is None or self.size == 0:
+            arr = self._filled(tuple(len(range(*s)) for s in sel if not isinstance(s, int)))
+        elif t.dtype.shape:  # a subarray type: its bytes, then its elements
+            mm = np.memmap(store.fh, np.uint8, "r", store.base + self._addr,
+                           self.shape + (t.size,))
             try:
-                out = np.array(mm[_np_key(sel)])
+                part = np.array(mm[_np_key(sel)])
             finally:
                 del mm
-            return out[()] if out.ndim == 0 else out
-        return self._read_chunked(sel, out_shape)
+            arr = _elements(part.tobytes(), t, part.shape[:-1]).copy()
+        else:
+            mm = np.memmap(store.fh, t.dtype, "r", store.base + self._addr, self.shape)
+            try:
+                arr = np.array(mm[_np_key(sel)])
+            finally:
+                del mm
+        return _finish(store, t, arr, text=False)
+
+    def read_direct_chunk(self, offsets) -> tuple[int, bytes]:
+        """(filter mask, stored bytes) of the chunk whose first element is
+        at ``offsets``, no filter undone: h5py's ``id.read_direct_chunk``."""
+        self._prepare()
+        if self._kind != "chunked":
+            raise ValueError(f"{self._where} is not chunked")
+        if self._chunk_map is None:
+            self._chunk_map = self._chunk_addresses()
+        entry = self._chunk_map.get(tuple(int(o) for o in offsets))
+        if entry is None:
+            raise KeyError(f"no chunk stored at {tuple(offsets)} in {self._where}")
+        addr, size, mask = entry
+        return mask, self.file._store.read(addr, size, f"chunk at {addr}")
 
     # chunked reads
     def _chunk_addresses(self):
         """{chunk origin (element offsets): (address, stored size, filter mask)}."""
         store = self.file._store
-        nbytes = int(np.prod(self.chunks)) * self.dtype.itemsize
+        nbytes = int(np.prod(self._chunks)) * self._t.size
         if self._addr is None:
             return {}
         if self._index == "single":
@@ -1067,21 +1238,43 @@ class Dataset(_Object):
             return {(0,) * self.ndim: (self._addr, size, mask)}
         if self._index == "btree1":
             return _btree1_chunks(store, self._addr, self.ndim)
-        return _farray_chunks(store, self._addr, self.shape, self.chunks, nbytes)
+        if self._index == "btree2":
+            return _btree2_chunks(store, self._addr, self._chunks, nbytes)
+        # the array indices number the chunks in row-major order over the
+        # chunk counts of the maximum shape; the extensible array first moves
+        # its one unlimited dimension to the front (H5Dearray.c's swizzle)
+        counts = [None if m is None else -(-m // c) for m, c in zip(self.maxshape, self._chunks)]
+        order = list(range(self.ndim))
+        if None in counts:
+            unlimited = counts.index(None)
+            order = [unlimited] + order[:unlimited] + order[unlimited + 1:]
+        if None in [counts[d] for d in order[1:]] or (self._index != "earray" and None in counts):
+            raise HDF5Error(f"a {self._index} chunk index over {counts} chunks in {self._where}")
+        if self._index == "implicit":
+            n = int(np.prod(counts, dtype=np.int64))
+            addr = self._addr + nbytes * np.arange(n, dtype=np.uint64)
+            return _chunk_dict(np.arange(n), (addr, nbytes, 0), store.osize, self._chunks,
+                               counts, order)
+        if self._index == "farray":
+            idx, entries = _farray_entries(store, self._addr, nbytes)
+        else:
+            idx, entries = _earray_entries(store, self._addr, nbytes)
+        return _chunk_dict(idx, entries, store.osize, self._chunks, counts, order)
 
-    def _read_chunked(self, sel, out_shape):
-        store = self.file._store
+    def _read_chunked(self, sel):
+        store, t = self.file._store, self._t
         if self._chunk_map is None:
             self._chunk_map = self._chunk_addresses()
         ranges = [range(s, s + 1) if isinstance(s, int) else range(*s) for s in sel]
-        out = np.empty([len(r) for r in ranges], self.dtype)
-        nbytes = int(np.prod(self.chunks)) * self.dtype.itemsize
+        out = np.empty([len(r) for r in ranges], t.dtype)
+        fill = np.frombuffer(self._fill, t.dtype, 1)[0]
+        nbytes = int(np.prod(self._chunks)) * t.size
         if out.size:
-            per_dim = [range(r[0] // c, r[-1] // c + 1) for r, c in zip(ranges, self.chunks)]
+            per_dim = [range(r[0] // c, r[-1] // c + 1) for r, c in zip(ranges, self._chunks)]
             for grid in np.ndindex(*[len(p) for p in per_dim]):
-                origin = tuple(p[g] * c for p, g, c in zip(per_dim, grid, self.chunks))
+                origin = tuple(p[g] * c for p, g, c in zip(per_dim, grid, self._chunks))
                 src, dst = [], []
-                for r, o, c in zip(ranges, origin, self.chunks):
+                for r, o, c in zip(ranges, origin, self._chunks):
                     # the selected positions k with o <= r[k] < o + c
                     k0 = max(0, -(-(o - r.start) // r.step))
                     k1 = min(len(r), -(-(o + c - r.start) // r.step))
@@ -1091,14 +1284,20 @@ class Dataset(_Object):
                     continue  # a step that jumps over this chunk
                 entry = self._chunk_map.get(origin)
                 if entry is None:
-                    out[tuple(dst)] = self._fill
+                    out[tuple(dst)] = fill
                     continue
                 addr, size, mask = entry
                 raw = _decode_chunk(store.read(addr, size, f"chunk at {addr}"), self._filters,
                                     mask, nbytes, addr)
-                chunk = np.frombuffer(raw, self.dtype).reshape(self.chunks)
-                out[tuple(dst)] = chunk[tuple(src)]
-        return out.reshape(out_shape)[()] if out_shape else out.reshape(())[()]
+                out[tuple(dst)] = _elements(raw, t, self._chunks)[tuple(src)]
+        keep = tuple(len(r) for r, s in zip(ranges, sel) if not isinstance(s, int))
+        return out.reshape(keep + t.dtype.shape)
+
+
+#: chunk index types of a layout message v4: (name, bytes of parameters
+#: before the index address)
+_CHUNK_INDEX = {1: ("single", 0), 2: ("implicit", 0), 3: ("farray", 1), 4: ("earray", 5),
+                5: ("btree2", 6)}
 
 
 def _selection(key, shape):
@@ -1134,7 +1333,8 @@ def _np_key(sel):
     return tuple(s if isinstance(s, int) else slice(*s) for s in sel)
 
 
-def _fill_value(header: _Header, t: _Type):
+def _fill_raw(header: _Header, t: _Type) -> bytes:
+    """One element of the fill value as stored (zeros where none is set)."""
     m = header.one(_FILL)
     store_raw = None
     if m is not None:
@@ -1151,11 +1351,11 @@ def _fill_value(header: _Header, t: _Type):
     elif (m := header.one(_FILL_OLD)) is not None:
         c = _Cursor(m.data, 8, 8, "fill value message")
         store_raw = c.take(c.uint(4))
-    if not store_raw:
-        return np.zeros((), t.dtype)[()]
+    if not store_raw or t.kind == "vstr":
+        return bytes(t.size)
     if len(store_raw) != t.size:
         raise HDF5Error(f"a fill value of {len(store_raw)} bytes for elements of {t.size}")
-    return np.frombuffer(store_raw, t.dtype, 1)[0]
+    return store_raw
 
 
 def _filters(header: _Header):
@@ -1177,13 +1377,20 @@ def _filters(header: _Header):
         values = [c.uint(4) for _ in range(n_values)]
         if version == 1 and n_values % 2:
             c.skip(4)
-        if fid not in (1, 2, 3):
+        if fid not in _READ_FILTERS:
             raise UnsupportedFeature(f"filter {_FILTER_NAMES.get(fid, 'id')} (id {fid})")
         out.append((fid, values))
     return out
 
 
 def _decode_chunk(raw: bytes, filters, mask: int, nbytes: int, addr: int) -> bytes:
+    # the size each filter was given when the chunk was written, where no
+    # compressor ran before it
+    sizes, size = [], nbytes
+    for i, (fid, _) in enumerate(filters):
+        sizes.append(size)
+        if size is not None and not mask & (1 << i):
+            size = size + 4 if fid == 3 else size if fid == 2 else None
     for i in range(len(filters) - 1, -1, -1):
         if mask & (1 << i):
             continue
@@ -1194,11 +1401,14 @@ def _decode_chunk(raw: bytes, filters, mask: int, nbytes: int, addr: int) -> byt
             except zlib.error as e:
                 raise HDF5Error(f"deflate failed on the chunk at {addr}: {e}") from None
         elif fid == 2:
-            size = values[0] if values else 1
-            n = len(raw) // size
-            body = np.frombuffer(raw, np.uint8, n * size).reshape(size, n).T
-            raw = body.tobytes() + raw[n * size:]
-        else:
+            width = values[0] if values else 1
+            n = len(raw) // width
+            planes = np.frombuffer(raw, np.uint8, n * width).reshape(width, n)
+            out = np.empty((n, width), np.uint8)
+            for k in range(width):  # one byte plane at a time: faster than a transpose
+                out[:, k] = planes[k]
+            raw = out.tobytes() + raw[n * width:]
+        elif fid == 3:
             if len(raw) < 4:
                 raise HDF5Error(f"truncated fletcher32 chunk at {addr}")
             stored = int.from_bytes(raw[-4:], "little")
@@ -1206,6 +1416,13 @@ def _decode_chunk(raw: bytes, filters, mask: int, nbytes: int, addr: int) -> byt
             got = fletcher32(raw)
             if stored != got and stored != int.from_bytes(got.to_bytes(4, "little"), "big"):
                 raise HDF5Error(f"fletcher32 checksum mismatch in the chunk at {addr}")
+        else:
+            if sizes[i] is None:
+                raise UnsupportedFeature("lzf after another compressing filter")
+            try:
+                raw = lzf.decompress(raw, sizes[i])
+            except ValueError as e:
+                raise HDF5Error(f"lzf failed on the chunk at {addr}: {e}") from None
     if len(raw) != nbytes:
         raise HDF5Error(f"the chunk at {addr} decodes to {len(raw)} bytes, expected {nbytes}")
     return raw
@@ -1239,7 +1456,48 @@ def _btree1_chunks(store: _Store, addr: int, ndim: int) -> dict:
     return out
 
 
-def _farray_chunks(store: _Store, addr: int, shape, chunks, nbytes) -> dict:
+def _le(rows: np.ndarray, start: int, width: int) -> np.ndarray:
+    """The little-endian unsigned field at bytes [start, start + width) of
+    each row of a (n, record size) byte array."""
+    out = np.zeros(len(rows), np.uint64)
+    for k in range(width):
+        out |= rows[:, start + k].astype(np.uint64) << np.uint64(8 * k)
+    return out
+
+
+def _index_entries(raw: bytes, n: int, esize: int, osize: int, filtered: bool, nbytes: int):
+    """(addresses, stored sizes, filter masks) of ``n`` elements of a fixed
+    or extensible array: an address, or for filtered chunks an address, a
+    size (of the bytes left) and a mask."""
+    rows = np.frombuffer(raw, np.uint8, n * esize).reshape(n, esize)
+    if not filtered:
+        if esize != osize:
+            raise HDF5Error(f"{esize}-byte elements in a chunk index of {osize}-byte addresses")
+        return _le(rows, 0, osize), nbytes, 0
+    if esize <= osize + 4:
+        raise HDF5Error(f"{esize}-byte elements in a filtered chunk index")
+    return _le(rows, 0, osize), _le(rows, osize, esize - osize - 4), _le(rows, esize - 4, 4)
+
+
+def _chunk_dict(idx, entries, osize: int, chunks, counts, order) -> dict:
+    """{origin: (address, size, mask)} of the chunks at the linear indices
+    ``idx``, numbered in row-major order of the dimensions ``order``
+    (slowest first) over ``counts`` chunks a dimension (the slowest one's
+    count unused); undefined addresses (chunks never written) left out."""
+    idx = np.asarray(idx, np.int64)
+    addr, size, mask = (np.broadcast_to(np.asarray(e, np.uint64), idx.shape) for e in entries)
+    keep = addr != np.uint64((1 << (8 * osize)) - 1)
+    rest = idx[keep]
+    coords = [None] * len(chunks)
+    for d in reversed(order[1:]):
+        rest, coords[d] = np.divmod(rest, counts[d])
+    coords[order[0]] = rest
+    origins = zip(*[(coords[d] * chunks[d]).tolist() for d in range(len(chunks))])
+    return dict(zip(origins, zip(addr[keep].tolist(), size[keep].tolist(), mask[keep].tolist())))
+
+
+def _farray_entries(store: _Store, addr: int, nbytes: int):
+    """(indices, entries) of a fixed array's elements."""
     where = f"fixed array at {addr}"
     c = store.cursor_at_most(addr, 32 + store.lsize + store.osize, where)
     c.sig(b"FAHD")
@@ -1250,7 +1508,7 @@ def _farray_chunks(store: _Store, addr: int, shape, chunks, nbytes) -> dict:
     dblock = c.addr()
     _check(c.data[:c.pos + 4], where)
     if dblock is None:
-        return {}
+        return np.arange(0), (np.zeros(0, np.uint64), 0, 0)
     page_n = 1 << page_bits
     n_pages = -(-n // page_n) if n > page_n else 0
     bitmap_size = (n_pages + 7) // 8
@@ -1276,21 +1534,146 @@ def _farray_chunks(store: _Store, addr: int, shape, chunks, nbytes) -> dict:
             raise HDF5Error(f"bad signature in fixed array data block at {dblock}")
         _check(block, f"fixed array data block at {dblock}")
         raw = block[prefix:-4]
-    grid = [-(-s // cdim) for s, cdim in zip(shape, chunks)]
-    out = {}
-    c = _Cursor(raw, store.osize, store.lsize, where)
-    for i in range(n):
-        chunk_addr = c.addr()
-        if client == 1:
-            size = c.uint(esize - store.osize - 4)
-            mask = c.uint(4)
+    return np.arange(n), _index_entries(raw, n, esize, store.osize, client == 1, nbytes)
+
+
+def _earray_entries(store: _Store, addr: int, nbytes: int):
+    """(indices, entries) of an extensible array's elements (``H5EA*.c``):
+    the index block's own elements, then super block ``u``'s
+    2**(u // 2) data blocks of 2**((u + 1) // 2) * (minimum) elements; the
+    first super blocks' data blocks are addressed from the index block,
+    the others' from their super block, and a data block over 2**page_bits
+    elements is paged (its super block's bitmap says which pages exist)."""
+    o = store.osize
+    where = f"extensible array at {addr}"
+    c = store.cursor_at_most(addr, 12 + 6 * store.lsize + o + 4, where)
+    c.sig(b"EAHD")
+    if c.uint(1) != 0:
+        raise UnsupportedFeature("extensible array version")
+    client, esize, max_bits, iblock_n, dblock_min, sblock_min, page_bits = (
+        c.uint(1) for _ in range(7))
+    for _ in range(4):
+        c.length()  # super blocks, their bytes, data blocks, their bytes
+    n = c.length()  # the highest index set, plus one
+    c.length()  # elements realized
+    iblock = c.addr()
+    _check(c.data[:c.pos + 4], where)
+    for v, name in ((dblock_min, "data block minimum"), (sblock_min, "super block minimum")):
+        if v < 1 or v & (v - 1):
+            raise HDF5Error(f"{where}: its {name} {v} is not a power of 2")
+    if max_bits < _log2(dblock_min):
+        raise HDF5Error(f"{where}: {max_bits} index bits under its data block minimum")
+    idx, raws = [], []
+    if iblock is None or n == 0:
+        return np.arange(0), (np.zeros(0, np.uint64), 0, 0)
+    n_sblocks = 1 + max_bits - _log2(dblock_min)
+    in_iblock = 2 * _log2(sblock_min)  # super blocks whose data blocks the index block addresses
+    n_daddr, n_saddr = 2 * (sblock_min - 1), max(n_sblocks - in_iblock, 0)
+    off_size = (max_bits + 7) // 8
+    page_n = 1 << page_bits
+    w = f"extensible array index block at {iblock}"
+    block = store.read(iblock, 6 + o + iblock_n * esize + (n_daddr + n_saddr) * o + 4, w)
+    if block[:4] != b"EAIB":
+        raise HDF5Error(f"bad signature in {w}")
+    _check(block, w)
+    c = _Cursor(block, o, store.lsize, w, 4)
+    if c.uint(1) != 0 or c.uint(1) != client or c.addr() != addr:
+        raise HDF5Error(f"{w} does not belong to {where}")
+    idx.append(np.arange(min(iblock_n, n)))
+    raws.append(c.take(iblock_n * esize)[:len(idx[-1]) * esize])
+    daddrs = [c.addr() for _ in range(n_daddr)]
+    saddrs = [c.addr() for _ in range(n_saddr)]
+
+    def block_head(data, sig, at, kind):
+        cc = _Cursor(data, o, store.lsize, kind, 0)
+        cc.sig(sig)
+        if cc.uint(1) != 0 or cc.uint(1) != client or cc.addr() != addr:
+            raise HDF5Error(f"{kind} at {at} does not belong to {where}")
+        cc.skip(off_size)  # the block's first element (informational)
+        return cc
+
+    first = dblock_start = 0  # the super block's first element (after the index block's)
+    for u in range(n_sblocks):
+        n_dblocks, dn = 1 << (u // 2), dblock_min << ((u + 1) // 2)
+        start = first
+        first += n_dblocks * dn
+        if iblock_n + start >= n:
+            break
+        n_pages = dn // page_n if dn > page_n else 0
+        bitmap = None
+        if u < in_iblock:
+            dblocks = daddrs[dblock_start:dblock_start + n_dblocks]
+            if n_pages:
+                raise UnsupportedFeature("paged data blocks in an extensible array's index block")
         else:
-            size, mask = nbytes, 0
-        if chunk_addr is None:
-            continue
-        origin = np.unravel_index(i, grid)
-        out[tuple(int(g) * cdim for g, cdim in zip(origin, chunks))] = (chunk_addr, size, mask)
-    return out
+            sa = saddrs[u - in_iblock]
+            if sa is None:
+                continue
+            per_block = (n_pages + 7) // 8
+            w = f"extensible array super block at {sa}"
+            data = store.read(sa, 6 + o + off_size + n_dblocks * (per_block + o) + 4, w)
+            _check(data, w)
+            cc = block_head(data, b"EASB", sa, "extensible array super block")
+            bitmap = cc.take(n_dblocks * per_block)
+            dblocks = [cc.addr() for _ in range(n_dblocks)]
+        dblock_start += n_dblocks
+        for k, da in enumerate(dblocks):
+            f0 = iblock_n + start + k * dn
+            if f0 >= n:
+                break
+            if da is None:
+                continue
+            prefix = 6 + o + off_size
+            w = f"extensible array data block at {da}"
+            if not n_pages:
+                count = min(dn, n - f0)
+                data = store.read(da, prefix + dn * esize + 4, w)
+                _check(data, w)
+                block_head(data, b"EADB", da, "extensible array data block")
+                idx.append(np.arange(f0, f0 + count))
+                raws.append(data[prefix:prefix + count * esize])
+                continue
+            head = store.read(da, prefix + 4, w)
+            _check(head, w)
+            block_head(head, b"EADB", da, "extensible array data block")
+            for p in range(n_pages):
+                p0 = f0 + p * page_n
+                if p0 >= n:
+                    break
+                bit = k * n_pages + p
+                if not bitmap[bit // 8] & (0x80 >> (bit % 8)):
+                    continue  # page never written: no chunk
+                at = da + prefix + 4 + p * (page_n * esize + 4)
+                page = store.read(at, page_n * esize + 4, f"extensible array page at {at}")
+                _check(page, f"extensible array page at {at}")
+                count = min(page_n, n - p0)
+                idx.append(np.arange(p0, p0 + count))
+                raws.append(page[:count * esize])
+    idx = np.concatenate(idx)
+    return idx, _index_entries(b"".join(raws), len(idx), esize, o, client == 1, nbytes)
+
+
+def _btree2_chunks(store: _Store, addr: int, chunks, nbytes: int) -> dict:
+    """A v2 B-tree chunk index: records of type 10 (an address) or 11 (an
+    address, a size and a filter mask), each ending in its chunk's scaled
+    offsets (chunk indices, 8 bytes a dimension)."""
+    rtype, records = _btree2_records(store, addr)
+    if rtype not in (10, 11):
+        raise HDF5Error(f"v2 B-tree at {addr} has records of type {rtype}, not chunks")
+    if not records:
+        return {}
+    o, ndim, rsize = store.osize, len(chunks), len(records[0])
+    rows = np.frombuffer(b"".join(records), np.uint8).reshape(len(records), rsize)
+    width = rsize - o - 8 * ndim - (4 if rtype == 11 else 0)
+    if (rtype == 10 and width != 0) or (rtype == 11 and width < 1):
+        raise HDF5Error(f"{rsize}-byte chunk records in the v2 B-tree at {addr}")
+    entries = (_le(rows, 0, o), nbytes, 0) if rtype == 10 else \
+        (_le(rows, 0, o), _le(rows, o, width), _le(rows, o + width, 4))
+    scaled = [_le(rows, rsize - 8 * (ndim - d), 8) for d in range(ndim)]
+    addr_, size, mask = (np.broadcast_to(np.asarray(e, np.uint64), len(records)) for e in entries)
+    keep = addr_ != np.uint64((1 << (8 * o)) - 1)
+    origins = zip(*[(scaled[d][keep] * np.uint64(chunks[d])).tolist() for d in range(ndim)])
+    return dict(zip(origins, zip(addr_[keep].tolist(), size[keep].tolist(), mask[keep].tolist())))
 
 
 def is_group(obj) -> bool:
@@ -1400,9 +1783,36 @@ def _ohdr_v2(messages, flags: int, times: bytes, phase: bytes) -> bytes:
 
 
 class _NewDataset:
-    def __init__(self, data):
+    """A dataset to write: contiguous, or chunked with h5py's filters
+    (shuffle, then deflate or lzf, all optional as h5py sets them)."""
+
+    def __init__(self, data, chunks=None, compression=None, compression_opts=None,
+                 shuffle=False):
         self.data = np.asarray(data, order="C")  # a 0-d array stays 0-d
         _enc_datatype(self.data.dtype)  # refuse a type it cannot write now
+        self.chunks = None if chunks is None else tuple(int(c) for c in chunks)
+        self.filters = []  # (id, name, client data), in the order applied
+        if shuffle:
+            self.filters.append((2, "shuffle", [self.data.dtype.itemsize]))
+        if compression == "gzip":
+            level = 4 if compression_opts is None else int(compression_opts)
+            if not 0 <= level <= 9:
+                raise ValueError(f"gzip level {level} is not in 0-9")
+            self.filters.append((1, "deflate", [level]))
+        elif compression == "lzf":
+            if compression_opts is not None:
+                raise ValueError("lzf takes no compression_opts")
+        elif compression is not None:
+            raise UnsupportedFeature(f"writing the {compression!r} filter")
+        if self.chunks is None:
+            if self.filters or compression:
+                raise ValueError("a filtered dataset needs chunks")
+            return
+        if len(self.chunks) != self.data.ndim or self.data.ndim == 0 or min(self.chunks) < 1:
+            raise ValueError(f"chunks {self.chunks} for data of shape {self.data.shape}")
+        if compression == "lzf":  # h5py's client data: its filter's and LZF's versions
+            chunk_bytes = int(np.prod(self.chunks)) * self.data.dtype.itemsize
+            self.filters.append((32000, "lzf", [4, 0x0105, chunk_bytes]))
 
 
 class _NewGroup:
@@ -1418,10 +1828,14 @@ class _NewGroup:
         g = self.children[name] = _NewGroup()
         return g
 
-    def create_dataset(self, name: str, data) -> _NewDataset:
+    def create_dataset(self, name: str, data, chunks=None, compression=None,
+                       compression_opts=None, shuffle=False) -> _NewDataset:
+        """h5py's keywords: ``chunks`` (a tuple), ``compression`` ("gzip",
+        level ``compression_opts``, default 4; or "lzf") and ``shuffle``."""
         if name in self.children:
             raise ValueError(f"name {name!r} already exists")
-        d = self.children[name] = _NewDataset(data)
+        d = self.children[name] = _NewDataset(data, chunks, compression, compression_opts,
+                                              shuffle)
         return d
 
     def keys(self):
@@ -1503,14 +1917,104 @@ def _write_group(w: _Writer, g: _NewGroup, heap_ids: dict):
 
 
 def _write_dataset(w: _Writer, d: _NewDataset) -> int:
-    nbytes = d.data.nbytes
-    addr = w.put(memoryview(d.data).cast("B")) if nbytes else None
-    layout = struct.pack("<BB", 3, 1) + (_UNDEF if addr is None else struct.pack("<Q", addr)) \
-        + struct.pack("<Q", nbytes)
     msgs = [(_DATASPACE, 0, _enc_dataspace(d.data.shape)),
-            (_DATATYPE, 1, _enc_datatype(d.data.dtype)),
-            (_LAYOUT, 0, layout)]
+            (_DATATYPE, 1, _enc_datatype(d.data.dtype))]
+    if d.chunks is None:
+        nbytes = d.data.nbytes
+        addr = w.put(memoryview(d.data).cast("B")) if nbytes else None
+        msgs.append((_LAYOUT, 0, struct.pack("<BB", 3, 1) + _enc_addr(addr)
+                     + struct.pack("<Q", nbytes)))
+        return w.put(_ohdr_v1(msgs))
+    btree = _write_chunks(w, d)
+    msgs.append((_LAYOUT, 0, struct.pack("<BBB", 3, 2, d.data.ndim + 1) + _enc_addr(btree)
+                 + struct.pack(f"<{d.data.ndim + 1}I", *d.chunks, d.data.dtype.itemsize)))
+    if d.filters:
+        msgs.append((_FILTERS, 0, _enc_filters(d.filters)))
     return w.put(_ohdr_v1(msgs))
+
+
+def _enc_addr(addr) -> bytes:
+    return _UNDEF if addr is None else struct.pack("<Q", addr)
+
+
+def _enc_filters(filters) -> bytes:
+    """A filter pipeline message v1, every filter optional (as h5py sets
+    them: a chunk lzf does not shrink is stored as it is)."""
+    out = struct.pack("<BB6x", 1, len(filters))
+    for fid, name, values in filters:
+        bname = _pad8(name.encode() + b"\x00")
+        out += struct.pack("<HHHH", fid, len(bname), 1, len(values)) + bname + struct.pack(
+            f"<{len(values)}I", *values) + bytes(4 * (len(values) % 2))
+    return out
+
+
+def _encode_chunk(raw: bytes, filters) -> tuple[bytes, int]:
+    """A chunk through the filters: (stored bytes, filter mask)."""
+    mask = 0
+    for i, (fid, _, values) in enumerate(filters):
+        if fid == 2:
+            rows = np.frombuffer(raw, np.uint8).reshape(-1, values[0])
+            planes = np.empty(rows.shape[::-1], np.uint8)
+            for k in range(values[0]):
+                planes[k] = rows[:, k]
+            raw = planes.tobytes()
+        elif fid == 1:
+            raw = zlib.compress(raw, values[0])
+        else:
+            packed = lzf.compress(raw)
+            if packed is None:
+                mask |= 1 << i
+            else:
+                raw = packed
+    return raw, mask
+
+
+#: the chunk B-tree's K in a superblock v0 file (HDF5's default): up to 2K
+#: entries a node
+_CHUNK_K = 32
+
+
+def _write_chunks(w: _Writer, d: _NewDataset):
+    """Every chunk (edge chunks padded with zeros) in row-major order, then
+    the v1 B-tree indexing them, multi-level once a node's 2K entries are
+    full; the tree's address, or None for a dataset without chunks."""
+    data, chunks, ndim = d.data, d.chunks, d.data.ndim
+    key_size = 8 + 8 * (ndim + 1)
+
+    def key(size, mask, origin):
+        return struct.pack(f"<II{ndim + 1}Q", size, mask, *origin, 0)
+
+    entries, last = [], None
+    for g in np.ndindex(*[-(-n // c) for n, c in zip(data.shape, chunks)]):
+        origin = tuple(i * c for i, c in zip(g, chunks))
+        block = data[tuple(slice(o, o + c) for o, c in zip(origin, chunks))]
+        if block.shape != chunks:
+            full = np.zeros(chunks, data.dtype)
+            full[tuple(slice(0, n) for n in block.shape)] = block
+            block = full
+        raw, mask = _encode_chunk(np.ascontiguousarray(block).tobytes(), d.filters)
+        entries.append((key(len(raw), mask, origin), w.put(raw)))
+        last = origin
+    if not entries:
+        return None
+    # the right bound of the last chunk: one chunk further in every dimension
+    end = key(0, 0, tuple(o + c for o, c in zip(last, chunks)))
+    node_size = 8 + 2 * 8 + 2 * _CHUNK_K * (key_size + 8) + key_size
+    level = 0
+    while True:
+        parts = [entries[i:i + 2 * _CHUNK_K] for i in range(0, len(entries), 2 * _CHUNK_K)]
+        first = w.pos + (-w.pos) % 8
+        nodes = []
+        for k, part in enumerate(parts):
+            right = parts[k + 1][0][0] if k + 1 < len(parts) else end
+            node = (b"TREE" + struct.pack("<BBH", 1, level, len(part))
+                    + _enc_addr(None if k == 0 else first + (k - 1) * node_size)
+                    + _enc_addr(None if k + 1 == len(parts) else first + (k + 1) * node_size)
+                    + b"".join(kb + struct.pack("<Q", a) for kb, a in part) + right)
+            nodes.append((part[0][0], w.put(node + bytes(node_size - len(node)))))
+        if len(nodes) == 1:
+            return nodes[0][1]
+        entries, level = nodes, level + 1
 
 
 def _strings(g: _NewGroup, out: list):
@@ -1679,9 +2183,9 @@ class File:
         self._require_new()
         return self._root.create_group(name)
 
-    def create_dataset(self, name: str, data):
+    def create_dataset(self, name: str, data, **kwargs):
         self._require_new()
-        return self._root.create_dataset(name, data)
+        return self._root.create_dataset(name, data, **kwargs)
 
     def _require_new(self):
         if self.mode != "w":

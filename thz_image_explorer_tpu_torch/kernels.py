@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``;
-each ``csrc/<name>.c`` (host code: the ROI rasterizer) by the system C
-compiler (``cc``), which needs no CUDA toolchain. Libraries land
+each ``csrc/<name>.c`` (host code: the ROI rasterizer, the LZF codec) by
+the system C compiler (``cc``), which needs no CUDA toolchain. Libraries land
 in ``build/torch_kernels/`` beside the package, named by a hash of the
 source and the flags, so an edited source is rebuilt at its next use.
 Nothing is built at import time: the CPU tests import every module without
@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every host C source of the package (``csrc/<name>.c``)
-C_SOURCES = ("roi",)
+C_SOURCES = ("roi", "lzf")
 CC_FLAGS = ("-O2", "-fPIC", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}
