@@ -1,0 +1,8 @@
+"""publish_ms.drag: host ms of ``Explorer.publish`` (a span around the
+call, which ends in its one device-to-host copy) per slider step."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.publish_ms(run, "slider")
