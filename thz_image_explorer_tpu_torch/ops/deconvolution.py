@@ -41,6 +41,7 @@ from thz_image_explorer_tpu_torch.ops.firdesign import create_filter_bank
 from thz_image_explorer_tpu_torch.ops import rlsep
 from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable
 from thz_image_explorer_tpu_torch.parallel.mesh import all_sum, any_rank, grid_gather
+from thz_image_explorer_tpu_torch.utils import spans
 
 MIN_IMAGE_SIZE = 16  # deconvolution.rs:802
 DIRECT_CONV_MAX_ELEMS = 256  # convolve2d's direct-path threshold (:485)
@@ -413,16 +414,21 @@ def deconvolve_cube(
     rank whose bands need fewer checkpoints joins the rest after its run."""
     shape = tuple(data.shape)
     grid = shape[:2] if grid is None else tuple(grid)
-    bd = _band_data(geometry, (*grid, shape[2]), data.device)
-    spec, power, xh, xt = _prepare_spectra(data, bd)
-    imgs = _energy_images(power, xh, xt, bd, shape)
+    dev = data.device
+    with spans.span("deconv.spectra", dev):
+        bd = _band_data(geometry, (*grid, shape[2]), dev)
+        spec, power, xh, xt = _prepare_spectra(data, bd)
+    with spans.span("deconv.energy", dev):
+        imgs = _energy_images(power, xh, xt, bd, shape)
+        if mesh is None:
+            padded = _reflect_pad(imgs, bd)
+        else:
+            whole = grid_gather(imgs.permute(1, 2, 0), mesh, grid, origin)
+            padded = _reflect_pad(whole.permute(2, 0, 1).contiguous(), bd)
     if mesh is None:
-        padded = _reflect_pad(imgs, bd)
         u = _rl_checkpointed(padded, bd["px"], bd["py"], bd["n_iter"], progress, cancelled,
                              None)
     else:
-        whole = grid_gather(imgs.permute(1, 2, 0), mesh, grid, origin)
-        padded = _reflect_pad(whole.permute(2, 0, 1).contiguous(), bd)
         bands = band_split(bd["n_iter"], mesh.world)[mesh.rank]
         mine = torch.as_tensor(bands, device=data.device)
         sub = [t.index_select(0, mine).contiguous() for t in (padded, bd["px"], bd["py"])]
@@ -433,11 +439,12 @@ def deconvolve_cube(
         u = all_sum(torch.zeros_like(padded).index_copy_(0, mine, u_sub), mesh)
     if u is None:
         return None
-    pr, pc = bd["pad_r_max"] + origin[0], bd["pad_c_max"] + origin[1]
-    u = u[:, pr: pr + shape[0], pc: pc + shape[1]]
-    # 0/0 -> NaN, as in the reference
-    gains = torch.sqrt(torch.clamp(u, min=0.0) / imgs)
-    out = _spectral_band_sum(spec, gains, bd, shape)
+    with spans.span("deconv.band_sum", dev):
+        pr, pc = bd["pad_r_max"] + origin[0], bd["pad_c_max"] + origin[1]
+        u = u[:, pr: pr + shape[0], pc: pc + shape[1]]
+        # 0/0 -> NaN, as in the reference
+        gains = torch.sqrt(torch.clamp(u, min=0.0) / imgs)
+        out = _spectral_band_sum(spec, gains, bd, shape)
     progress(1.0)
     return out
 
@@ -459,10 +466,11 @@ def _rl_checkpointed(padded, px, py, n_iter, progress, cancelled, mesh,
         done += 1
         return stop
 
-    u = rl_bands_separable(padded, px, py, n_iter, between=lambda _d, _t: checkpoint())
-    while u is not None and done < total:
-        if checkpoint():
-            return None
-    if u is not None:
-        progress(total / (total + 1))
-    return u
+    with spans.span("deconv.rl", padded.device):
+        u = rl_bands_separable(padded, px, py, n_iter, between=lambda _d, _t: checkpoint())
+        while u is not None and done < total:
+            if checkpoint():
+                return None
+        if u is not None:
+            progress(total / (total + 1))
+        return u

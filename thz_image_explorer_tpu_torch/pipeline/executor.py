@@ -44,7 +44,6 @@ probes were TPU workarounds and are not ported.
 from __future__ import annotations
 
 import logging
-import time as _time
 from typing import Callable, Optional
 
 import numpy as np
@@ -63,6 +62,7 @@ from thz_image_explorer_tpu_torch.pipeline.stage import (
     build_chain,
     instantiate_filters,
 )
+from thz_image_explorer_tpu_torch.utils import spans
 
 log = logging.getLogger(__name__)
 
@@ -108,7 +108,8 @@ class Pipeline:
         #: last run (None: an active FD stage without ``fd_weight_vector``)
         self._fd_weights: dict[int, Optional[torch.Tensor]] = {}
         self._timings_ms: dict[str, float] = {}
-        self._pending_events: list = []
+        #: (stage, timer) of the last run's stages, read by ``timings_ms``
+        self._pending_timers: list = []
         #: valid (width, height) of slot 0
         self.valid_wh0: Optional[tuple[int, int]] = None
         #: the PSF model the deconvolution uses (``models.psf.PSF``), set
@@ -180,31 +181,36 @@ class Pipeline:
         other filter stage in the range, active or not, suppresses the
         deconvolution (``data_thread.rs:1139-1149``)."""
         self.run_epoch += 1
-        self._pending_events = []
+        self._pending_timers = []
         run_deconvolution = True
-        for i in range(max(start_idx, 1), len(self.chain)):
-            name = self.chain[i]
-            inp = self.slots[i - 1]
-            if inp is None or inp.time.shape[0] == 0:
-                log.warning("input for stage %s is empty; skipping", name)
-                continue
-            stage = self.filters.get(name)
-            if stage is not None and not stage.is_deconvolution:
-                run_deconvolution = False
-            timer = self._start_timer()
-            out = self._run_stage(i, name, inp, run_deconvolution or force_all)
-            if out is not inp:
-                self._stop_timer(name, timer)
-            if out.n_time != inp.n_time:
-                time = stage.host_time_out(self._host_time[i - 1], inp, self.valid_for(inp))
-                if time.shape[0] != out.n_time:
-                    raise ValueError(f"stage {name!r} gave {out.n_time} samples, its "
-                                     f"host_time_out {time.shape[0]}")
-                out = self._replan(out)
-                self._host_time[i] = time
-            else:
-                self._host_time[i] = self._host_time[i - 1]
-            self.slots[i] = out
+        with spans.span("executor.run"):
+            for i in range(max(start_idx, 1), len(self.chain)):
+                name = self.chain[i]
+                inp = self.slots[i - 1]
+                if inp is None or inp.time.shape[0] == 0:
+                    log.warning("input for stage %s is empty; skipping", name)
+                    continue
+                stage = self.filters.get(name)
+                if stage is not None and not stage.is_deconvolution:
+                    run_deconvolution = False
+                # the stage's span reads the same timer as timings_ms
+                timer = spans.Timer(self.device)
+                with spans.span("stage." + name, timer=timer) as stage_span:
+                    out = self._run_stage(i, name, inp, run_deconvolution or force_all)
+                    if out is inp:
+                        stage_span.discard()  # a pass-through: the stage did not run
+                    else:
+                        self._stop_timer(name, timer)
+                if out.n_time != inp.n_time:
+                    time = stage.host_time_out(self._host_time[i - 1], inp, self.valid_for(inp))
+                    if time.shape[0] != out.n_time:
+                        raise ValueError(f"stage {name!r} gave {out.n_time} samples, its "
+                                         f"host_time_out {time.shape[0]}")
+                    out = self._replan(out)
+                    self._host_time[i] = time
+                else:
+                    self._host_time[i] = self._host_time[i - 1]
+                self.slots[i] = out
 
     def _run_stage(self, i: int, name: str, inp: ScanCube,
                    run_deconvolution: bool) -> ScanCube:
@@ -265,31 +271,22 @@ class Pipeline:
         )
 
     # ------------------------------------------------------------ timings
-    def _start_timer(self):
+    def _stop_timer(self, name: str, timer: spans.Timer):
+        timer.stop()
         if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return _time.perf_counter()
-
-    def _stop_timer(self, name: str, start):
-        if self.device.type == "cuda":
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._pending_events.append((name, start, end))
+            self._pending_timers.append((name, timer))
         else:
-            self._timings_ms[name] = (_time.perf_counter() - start) * 1e3
+            self._timings_ms[name] = timer.ms()
 
     @property
     def timings_ms(self) -> dict[str, float]:
         """Per-stage compute time of each stage's last real run, in ms
         (pass-throughs keep their last value). On CUDA the events of the
         last run are read here, after one synchronize."""
-        if self._pending_events:
-            self._pending_events[-1][2].synchronize()
-            for name, start, end in self._pending_events:
-                self._timings_ms[name] = start.elapsed_time(end)
-            self._pending_events = []
+        if self._pending_timers:
+            for name, timer in self._pending_timers:
+                self._timings_ms[name] = timer.ms()
+            self._pending_timers = []
         return dict(self._timings_ms)
 
     # ------------------------------------------------------------------

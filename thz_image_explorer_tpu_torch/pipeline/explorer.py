@@ -35,6 +35,7 @@ from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
 from thz_image_explorer_tpu_torch.pipeline.executor import Pipeline
 from thz_image_explorer_tpu_torch.pipeline.publish import Publisher
 from thz_image_explorer_tpu_torch.pipeline.stage import FilterStage
+from thz_image_explorer_tpu_torch.utils import spans
 
 log = logging.getLogger(__name__)
 
@@ -619,46 +620,47 @@ class Explorer:
         """Publish the plot series and the intensity image of the current
         slots (the ``data_lock`` write, ``data_thread.rs:1336-1560``).
         A pending open is finalized first."""
-        self._ensure_open_finalized()
-        final = self.pipeline.output
-        if self.pipeline.input is None or final is None:
-            self.plot = PlotData()
-            return
-        poly_rois = [(u, name, poly) for u, (name, poly) in self.rois.items()
-                     if poly is not None]
-        masks, roi_key = self._roi_masks(poly_rois, final)
-        optical = self._optical_request(poly_rois, final.n_freq)
-        # pseudo entries build no mask, but a pseudo entry added, renamed or
-        # deleted still changes the key of what the publisher caches
-        pseudo_key = tuple((u, name) for u, (name, poly) in self.rois.items() if poly is None)
-        host = self.publisher.publish(
-            self.pipeline, masks, (roi_key, pseudo_key), tuple(self.pixel_selected), optical
-        )
-        plot = PlotData()
-        for key in ("time", "signal", "frequencies", "signal_fft", "phase_fft",
-                    "filtered_time", "filtered_signal", "filtered_frequencies",
-                    "filtered_signal_fft", "filtered_phase_fft", "avg_signal",
-                    "avg_signal_fft", "avg_phase_fft"):
-            setattr(plot, key, host[key])
-        v0 = self.pipeline.valid_wh0
-        self.image = host["image"][: v0[0], : v0[1]]
-        for i, (uuid, name, _poly) in enumerate(poly_rois):
-            plot.roi_signal[uuid] = (name, host["roi_trace"][i])
-            plot.roi_signal_fft[uuid] = (name, host["roi_amp"][i])
-            plot.roi_phase[uuid] = (name, host["roi_ph"][i])
-        for uuid, (name, poly) in self.rois.items():
-            data = self._datasets.get(uuid) if poly is None else None
-            if data is not None:
-                plot.roi_signal[uuid] = (name, data[0])
-                plot.roi_signal_fft[uuid] = (name, data[1])
-                plot.roi_phase[uuid] = (name, data[2])
-        if optical is not None:
-            plot.refractive_index = host["refractive_index"]
-            plot.absorption_coefficient = host["absorption_coefficient"]
-            plot.extinction_coefficient = host["extinction_coefficient"]
-        plot.available_references = [name for name, _p in self.rois.values()]
-        plot.available_samples = plot.available_references + [SELECTED_PIXEL]
-        self.plot = plot
+        with spans.span("publish"):
+            self._ensure_open_finalized()
+            final = self.pipeline.output
+            if self.pipeline.input is None or final is None:
+                self.plot = PlotData()
+                return
+            poly_rois = [(u, name, poly) for u, (name, poly) in self.rois.items()
+                         if poly is not None]
+            masks, roi_key = self._roi_masks(poly_rois, final)
+            optical = self._optical_request(poly_rois, final.n_freq)
+            # pseudo entries build no mask, but a pseudo entry added, renamed or
+            # deleted still changes the key of what the publisher caches
+            pseudo_key = tuple((u, name) for u, (name, poly) in self.rois.items() if poly is None)
+            host = self.publisher.publish(
+                self.pipeline, masks, (roi_key, pseudo_key), tuple(self.pixel_selected), optical
+            )
+            plot = PlotData()
+            for key in ("time", "signal", "frequencies", "signal_fft", "phase_fft",
+                        "filtered_time", "filtered_signal", "filtered_frequencies",
+                        "filtered_signal_fft", "filtered_phase_fft", "avg_signal",
+                        "avg_signal_fft", "avg_phase_fft"):
+                setattr(plot, key, host[key])
+            v0 = self.pipeline.valid_wh0
+            self.image = host["image"][: v0[0], : v0[1]]
+            for i, (uuid, name, _poly) in enumerate(poly_rois):
+                plot.roi_signal[uuid] = (name, host["roi_trace"][i])
+                plot.roi_signal_fft[uuid] = (name, host["roi_amp"][i])
+                plot.roi_phase[uuid] = (name, host["roi_ph"][i])
+            for uuid, (name, poly) in self.rois.items():
+                data = self._datasets.get(uuid) if poly is None else None
+                if data is not None:
+                    plot.roi_signal[uuid] = (name, data[0])
+                    plot.roi_signal_fft[uuid] = (name, data[1])
+                    plot.roi_phase[uuid] = (name, data[2])
+            if optical is not None:
+                plot.refractive_index = host["refractive_index"]
+                plot.absorption_coefficient = host["absorption_coefficient"]
+                plot.extinction_coefficient = host["extinction_coefficient"]
+            plot.available_references = [name for name, _p in self.rois.values()]
+            plot.available_samples = plot.available_references + [SELECTED_PIXEL]
+            self.plot = plot
 
     def _polygon_rois(self) -> dict:
         return {u: entry for u, entry in self.rois.items() if entry[1] is not None}
@@ -712,24 +714,25 @@ class Explorer:
         """(R, X, Y) f32 mask stack of the polygon ROIs on the final slot's
         (possibly downscaled) grid, on the device, plus its cache key.
         Each polygon is rasterized once per grid."""
-        shape = (final.width, final.height)
-        valid = tuple(final.valid_wh)
-        geom = (shape, valid, final.scaling)
-        key = (tuple((u, tuple(poly)) for u, _n, poly in poly_rois), geom)
-        if key != self._mask_key:
-            stack = np.zeros((len(poly_rois),) + shape, np.float32)
-            masks = {}
-            for i, (_u, _n, poly) in enumerate(poly_rois):
-                pkey = (tuple(poly), geom)
-                m = self._poly_masks.get(pkey)
-                if m is None:
-                    m = polygon_mask(poly, valid, final.scaling)
-                masks[pkey] = m
-                stack[i, : valid[0], : valid[1]] = m
-            self._poly_masks = masks
-            self._mask_stack = torch.as_tensor(stack, device=self.device)
-            self._mask_key = key
-        return self._mask_stack, key
+        with spans.span("publish.masks"):
+            shape = (final.width, final.height)
+            valid = tuple(final.valid_wh)
+            geom = (shape, valid, final.scaling)
+            key = (tuple((u, tuple(poly)) for u, _n, poly in poly_rois), geom)
+            if key != self._mask_key:
+                stack = np.zeros((len(poly_rois),) + shape, np.float32)
+                masks = {}
+                for i, (_u, _n, poly) in enumerate(poly_rois):
+                    pkey = (tuple(poly), geom)
+                    m = self._poly_masks.get(pkey)
+                    if m is None:
+                        m = polygon_mask(poly, valid, final.scaling)
+                    masks[pkey] = m
+                    stack[i, : valid[0], : valid[1]] = m
+                self._poly_masks = masks
+                self._mask_stack = torch.as_tensor(stack, device=self.device)
+                self._mask_key = key
+            return self._mask_stack, key
 
 
 def _align_reference(signal, time: np.ndarray, scan_time: np.ndarray) -> np.ndarray:

@@ -28,6 +28,7 @@ from thz_image_explorer_tpu_torch.pipeline.stage import (
     StageContext,
     register_filter,
 )
+from thz_image_explorer_tpu_torch.utils import spans
 
 log = logging.getLogger(__name__)
 
@@ -259,16 +260,17 @@ class Deconvolution(FilterStage):
     def _geometry(self, cube: ScanCube, context: StageContext):
         """The band plan for the whole pixel grid (a rank's block of a
         sharded cube is deconvolved as part of it), cached on its inputs."""
-        psf = context.psf
-        time = context.time if context.time is not None else cube.time.cpu().numpy()
-        # keyed on the PSF's content, not its id(): a new PSF allocated
-        # at a freed one's address must not hit a stale plan
-        key = (
-            dataclasses.astuple(self.params), psf.fingerprint(), time.shape,
-            float(time[0]), float(time[-1]), cube.grid_wh, cube.dx, cube.dy,
-        )
-        if self._plan_cache is None or self._plan_cache[0] != key:
-            self._plan_cache = (key, dec.plan_bands(
-                self.params, psf, time, cube.grid_wh, cube.dx, cube.dy,
-            ))
-        return self._plan_cache[1]
+        with spans.span("deconv.plan"):
+            psf = context.psf
+            time = context.time if context.time is not None else cube.time.cpu().numpy()
+            # keyed on the PSF's content, not its id(): a new PSF allocated
+            # at a freed one's address must not hit a stale plan
+            key = (
+                dataclasses.astuple(self.params), psf.fingerprint(), time.shape,
+                float(time[0]), float(time[-1]), cube.grid_wh, cube.dx, cube.dy,
+            )
+            if self._plan_cache is None or self._plan_cache[0] != key:
+                self._plan_cache = (key, dec.plan_bands(
+                    self.params, psf, time, cube.grid_wh, cube.dx, cube.dy,
+                ))
+            return self._plan_cache[1]

@@ -48,13 +48,15 @@ from thz_image_explorer_tpu_torch.parallel.mesh import (
     grid_place,
     valid_mask,
 )
+from thz_image_explorer_tpu_torch.utils import spans
 
 
 def _to_host(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Copy a dict of f32 tensors to numpy in ONE device->host transfer."""
     if not tensors:
         return {}
-    flat = torch.cat([t.reshape(-1) for t in tensors.values()]).cpu().numpy()
+    with spans.span("publish.to_host"):
+        flat = torch.cat([t.reshape(-1) for t in tensors.values()]).cpu().numpy()
     out, pos = {}, 0
     for key, t in tensors.items():
         out[key] = flat[pos: pos + t.numel()].reshape(tuple(t.shape))

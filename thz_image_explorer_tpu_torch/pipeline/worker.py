@@ -29,11 +29,13 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 import traceback
 from collections import deque
 from typing import Any, Callable, Optional
 
 from thz_image_explorer_tpu_torch.pipeline.explorer import Explorer
+from thz_image_explorer_tpu_torch.utils import spans
 
 log = logging.getLogger(__name__)
 
@@ -97,7 +99,9 @@ class CommandQueue:
 
     Payloads are keyed by a sequence number that rides the FIFO; coalescing
     replaces a queued key's payload in place (same seq, same position), so
-    the queue holds at most one command per distinct key.
+    the queue holds at most one command per distinct key. While spans
+    record (``utils.spans``), a put is stamped on ``time.perf_counter``; a
+    coalesced put keeps the first put's stamp.
     """
 
     def __init__(self):
@@ -111,8 +115,12 @@ class CommandQueue:
         #: one with less escaped a drain in flight and must honour that abort
         self.abort_epoch = 0
         self.pop_epoch = 0
+        #: the sequence number and put stamp (None: not stamped) of the
+        #: payload the last take() returned
+        self.pop_seq = 0
+        self.pop_stamp: Optional[float] = None
         self._seq = 0
-        self._by_key: dict[Any, list] = {}  # key -> [seq, payload]
+        self._by_key: dict[Any, list] = {}  # key -> [seq, payload, put stamp]
         self._seq2key: dict[int, Any] = {}
         self._fifo: deque[int] = deque()
         self._closed = False
@@ -128,7 +136,8 @@ class CommandQueue:
             seq = self._seq
             if key is None:
                 key = ("#oneshot", seq)
-            self._by_key[key] = [seq, command]
+            stamp = time.perf_counter() if spans.recording() else None
+            self._by_key[key] = [seq, command, stamp]
             self._seq2key[seq] = key
             self._fifo.append(seq)
             self._cv.notify()
@@ -142,7 +151,8 @@ class CommandQueue:
                 return None
             key = self._seq2key.pop(self._fifo.popleft())
             self.pop_epoch = self.abort_epoch
-            return self._by_key.pop(key)[1]
+            self.pop_seq, command, self.pop_stamp = self._by_key.pop(key)
+            return command
 
     def empty(self) -> bool:
         with self._lock:
@@ -269,13 +279,19 @@ class ExplorerWorker:
         while not self._stop.is_set():
             cmd = self.queue.take(timeout=0.1)
             if cmd is not None:
+                seq = self.queue.pop_seq
+                if self.queue.pop_stamp is not None:
+                    spans.record("worker.wait", self.queue.pop_stamp, time.perf_counter(),
+                                 request=seq)
                 self._idle.clear()
                 # clear only a provably stale abort: equal epochs mean no
                 # drain ran after this command's payload lookup
                 with self._abort_lock:
                     if self.queue.pop_epoch == self.queue.abort_epoch:
                         self.abort_flag.clear()
-                self._execute(*cmd)
+                with spans.span("worker.command", request=seq,
+                                attrs={"method": getattr(cmd[0], "__name__", cmd[0])}):
+                    self._execute(*cmd)
             if self._stop.is_set():
                 continue  # close() woke the take(): start no device work
             # evaluated after every iteration, so a reader polling call()
