@@ -17,7 +17,9 @@ checkpoint), followed by slider steps and clicks that must not rerun it and
 a 3-D view of the deconvolved scan; both separable Richardson-Lucy routes
 (the cluster kernel and the half-iteration kernel), both routes of the
 general 2-D kernel (the cluster kernel and the tiled one) and the grouped
-cluster kernel on the Apply's own inputs and ragged ones; then the
+cluster kernel on the Apply's own inputs and ragged ones; the band-sum
+kernel (the gains and the weighted spectrum, one launch an Apply) on the
+Apply's own inputs at 200x200, at a tilted T and at 512x512; then the
 same commands, the 3-D view and SaveVTU on a small scan on the card and on
 the CPU; then tilt compensation on the reference scan (tilts of 2 and 3
 degrees: T = 1488 and 1606, slider steps, clicks and tilt steps, a live
@@ -97,6 +99,9 @@ _RLSEP_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:140"
 _ENVELOPE_REPLACES = "thz_image_explorer_tpu/ops/voxel.py:213"
 _RL2D_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:61"
 _RLSEP_GROUPED_REPLACES = "thz_image_explorer_tpu/ops/pallas_rl.py:157"
+#: the band-sum kernel replaces no TPU kernel (the JAX package's einsums)
+_BANDSUM_REPLACES = ("none: thz_image_explorer_tpu/ops/deconvolution.py:_spectral_band_sum's "
+                     "two jnp.einsum calls and products, in XLA")
 #: why the kernels line has no previous-design time for the kernels
 #: redesigned in place: the smoke builds only the checkout's sources
 _PREVIOUS_DESIGN = ("the smoke builds only this checkout's sources; "
@@ -112,6 +117,10 @@ _SMS = 132
 #: max|plain| (summation order, compounded over up to 500 multiplicative
 #: iterations)
 _RL_REL_TOL = 1e-3
+#: kernel vs plain band sum, per bin: |kernel - plain| <= this * (2B + 8) *
+#: |spec| * sum_b g_b |T_b| (each side sums B products in its own order, then
+#: one complex product: B + 2 f32 roundings a side of that scale)
+_BANDSUM_TOL = 2.0 ** -24
 
 
 #: the script's start, for each phase line's elapsed seconds
@@ -973,6 +982,69 @@ def check_rl(padded, px, py, n_iter, label, route, ref=None):
     return rl_errors(got, ref, label)
 
 
+def check_bandsum(data, geometry, name):
+    """The band-sum kernel against its plain version on the Apply's own
+    inputs for the (X, Y, T) cube ``data`` (phases a and b, then the RL
+    kernel, as ``deconvolve_cube`` runs them): per bin |kernel - plain| <=
+    _BANDSUM_TOL (2B + 8) |spec| sum_b g_b |T_b|, NaN where the plain version
+    has NaN, two kernel runs bit-identical, one launch a call. Times, on the
+    device: the kernel (behind a spin), the plain version, and phase c both
+    ways (with cuFFT's inverse transform and the centre window), against
+    the kernel's byte bound."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import bandsum as bs
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    bd, spec, energy, padded = dec._rl_operands(data, geometry)
+    u = rlsep.rl_bands_separable(padded, bd["px"], bd["py"], bd["n_iter"])
+    del padded
+    (n, m), bands = spec.shape, u.shape[0]
+    x, cols = data.shape[0], data.shape[1]
+    offset = (bd["pad_r_max"], bd["pad_c_max"])
+    args = (u, energy, bd["taps"], offset, cols)
+    plain = bs.weighted_spectrum_plain(spec.clone(), *args)
+    before = bs.weighted_spectrum.launches
+    got = bs.weighted_spectrum(spec.clone(), *args)
+    again = bs.weighted_spectrum(spec.clone(), *args)
+    torch.cuda.synchronize()
+    assert bs.weighted_spectrum.launches - before == 2
+    assert torch.equal(torch.view_as_real(got).view(torch.int32),
+                       torch.view_as_real(again).view(torch.int32)), "two kernel runs differ"
+    del again
+    crop = u[:, offset[0]: offset[0] + x, offset[1]: offset[1] + cols]
+    gains = torch.sqrt(torch.clamp(crop, min=0.0) / energy.T.reshape(bands, x, cols))
+    scale = spec.abs() * (gains.reshape(bands, -1).T @ bd["taps"].abs())
+    nan = torch.isnan(plain)
+    assert torch.equal(nan, torch.isnan(got)), "NaN bins differ"
+    diff = (got - plain).abs()[~nan]
+    scale = scale[~nan]
+    tol = _BANDSUM_TOL * (2 * bands + 8)
+    worst = float((diff / torch.clamp(scale, min=1e-30)).max())
+    assert bool((diff <= tol * scale).all()), (name, worst, tol)
+    max_abs = float(diff.max())
+    del plain, got, diff, scale, crop, gains, nan
+    torch.cuda.empty_cache()
+    work = spec.clone()
+    shape, t0, t1 = tuple(data.shape), bd["shift"], bd["shift"] + data.shape[2]
+
+    def phase_plain():
+        out = torch.fft.irfft(bs.weighted_spectrum_plain(work, *args), n=bd["fft_len"])
+        return out[:, t0:t1].reshape(shape)
+
+    kernel_ms = device_ms(lambda: bs.weighted_spectrum(work, *args), reps=5, inner=5)
+    plain_ms = time_ms(lambda: bs.weighted_spectrum_plain(work, *args), reps=5, inner=1)
+    phase_ms = device_ms(lambda: dec._band_sum(work, u, energy, bd, shape, (0, 0)),
+                         reps=5, inner=5)
+    phase_plain_ms = time_ms(phase_plain, reps=5, inner=1)
+    bound_ms = bs.bound_bytes(n, m, bands) / memory_rate(name) * 1e3
+    return dict(shape=[n, m, bands], plan=bs.plan(n, m, bands), max_abs_err=max_abs,
+                max_err_over_scale=worst, tolerance_over_scale=tol, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, phase_ms=phase_ms, phase_plain_ms=phase_plain_ms,
+                bound_ms=bound_ms, bound_by="bytes")
+
+
 @contextlib.contextmanager
 def _patched(module, name, value):
     kept = getattr(module, name)
@@ -1443,12 +1515,14 @@ def command_ms(cmd, counter=None):
 
 def zero_counts():
     """Every kernel wrapper's launch count set to 0."""
+    from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import envelope as env
     from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
 
     sr.spectral_reduction_sums.launches = 0
     env.envelope.launches = 0
+    bs.weighted_spectrum.launches = 0
     rlsep.rl_bands_separable.launches = 0
     rlsep.rl_bands_separable.launches_tiled = 0
     rlsep.rl_bands_separable_grouped.launches = 0
@@ -1457,11 +1531,13 @@ def zero_counts():
 
 
 def read_counts():
+    from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import envelope as env
     from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
 
     return dict(specred=sr.spectral_reduction_sums.launches,
+                bandsum=bs.weighted_spectrum.launches,
                 envelope=env.envelope.launches,
                 rlsep_cluster=rlsep.rl_bands_separable.launches,
                 rlsep=rlsep.rl_bands_separable.launches_tiled,
@@ -1498,11 +1574,13 @@ def drive_tilt(ex, rng, n_slider, n_clicks, n_steps):
     """The tilt path on an open scan with the main path's filters and ROIs:
     tilt on at (2, 2) degrees, slider updates, clicks and tilt-slider steps
     (each reruns from the tilt stage), then (3, 2) and the same, one live 3-D
-    view and an Apply after tilt (then one more). Returns (per-tilt
+    view and an Apply after tilt (then five more; one band-sum launch
+    each). Returns (per-tilt
     measurements, the spectra and the view's traces for the kernel checks,
     the Apply's measurements)."""
     import torch
 
+    from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import envelope as env
     from thz_image_explorer_tpu_torch.ops import rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
@@ -1575,16 +1653,20 @@ def drive_tilt(ex, rng, n_slider, n_clicks, n_steps):
 
     ex.apply_psf(synthetic_psf())
     ex.set_filter_active(DEC, True)
+    bandsum_before = bs.weighted_spectrum.launches
     first_ms, first_rl = command_ms(lambda: ex.update_filter(DEC, force=True), rl_count)
     again = [command_ms(lambda: ex.update_filter(DEC, force=True), rl_count) for _ in range(5)]
     geometry = p.filters[DEC]._plan_cache[1]
     expected = len(rlsep.launch_schedule(geometry.n_iter))
     assert first_rl == expected > 0 and all(n == expected for _m, n in again), (first_rl, again)
+    bandsum_launches = bs.weighted_spectrum.launches - bandsum_before
+    assert bandsum_launches == 1 + len(again), bandsum_launches
     assert np.isfinite(ex.image).all() and ex.plot.filtered_time.shape == (p.output.n_time,)
     apply = dict(T=p.output.n_time, first_apply_ms=first_ms,
                  apply_again_ms=statistics.median(m for m, _ in again),
                  apply_again_ms_runs=[m for m, _ in again], stage_ms=p.timings_ms[DEC],
                  rl_launches_per_apply=first_rl, rl_launches_expected=expected,
+                 bandsum_launches_per_apply=bandsum_launches // (1 + len(again)),
                  geometry=geometry_summary(geometry, (width, height)))
     return per_tilt, spectra, (view_ms, view, view_flat), apply
 
@@ -2146,6 +2228,7 @@ def phase_shell(t, cube, seed):
         for _ms, counts in applies:
             assert counts["rlsep_cluster"] == expected_launches == 9 and counts["rlsep"] == 0, \
                 counts
+            assert counts["bandsum"] == 1, counts
         assert s["filters"]["deconvolution"]["time_ms"] > 0
         rec.update(apply_first_ms=applies[0][0], apply_again_ms=applies[1][0],
                    apply_rl_launches=[c["rlsep_cluster"] for _m, c in applies])
@@ -2177,6 +2260,7 @@ def phase_shell(t, cube, seed):
         abort_counts = counts_since(before)
         rec["abort_rl_launches"] = abort_counts["rlsep_cluster"]
         assert 0 < abort_counts["rlsep_cluster"] < expected_launches, abort_counts
+        assert abort_counts["bandsum"] == 0, abort_counts
         assert not worker.failures, list(worker.failures)
 
         # 12. card vs CPU on a small scan, through two WebApps
@@ -2885,6 +2969,7 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
     assert all(scaled_equal1.values()), ("1 rank scale 3 vs the single device", scaled_equal1)
     for k in ("specred", "rlsep_cluster", "envelope"):
         assert counts1[k] > 0, (k, counts1)
+    assert counts1["bandsum"] == 1, counts1
     record["world1"] = dict(
         backend=backend, mesh=[1, 1], bit_for_bit=equal1, max_abs_diff=diffs1,
         thz_open_ms=thz_open1_ms,
@@ -2925,6 +3010,7 @@ def phase_multi_device(t, cube, t5, cube5, name, smi, pm_seed, device="cuda"):
             diffs, equal = md_compare(got, ref, f"{world} ranks, rank {res['rank']}")
             for k in ("specred", "rlsep_cluster", "envelope"):
                 assert res["launches"][k] > 0, (world, res["rank"], k, res["launches"])
+            assert res["launches"]["bandsum"] == 1, (world, res["rank"], res["launches"])
             s_diffs, s_equal = md_compare_scaled(got, ref_scaled,
                                                  f"{world} ranks, rank {res['rank']}, scale 3")
             assert res["scaled_step_launches"]["specred"] == 1, res["scaled_step_launches"]
@@ -3304,8 +3390,9 @@ def pm_kernels_at_blocks(client, device, name):
 
 def pm_check_launches(record, label):
     """Each rank's launches per command: 1 specred launch per chain run and
-    none per click; 1-9 cluster RL launches per Apply, none elsewhere; no
-    half-iteration RL launch; 1 envelope launch per dense extraction."""
+    none per click; 1-9 cluster RL launches and 1 band-sum launch per Apply,
+    none elsewhere; no half-iteration RL launch; 1 envelope launch per dense
+    extraction."""
     for name, kind, _ms, counts in record:
         want_sr = 0 if kind == "click" or kind == "dense" else 1
         assert counts["specred"] == want_sr, (label, name, counts)
@@ -3313,6 +3400,7 @@ def pm_check_launches(record, label):
             assert 1 <= counts["rlsep_cluster"] <= 9, (label, name, counts)
         else:
             assert counts["rlsep_cluster"] == 0, (label, name, counts)
+        assert counts["bandsum"] == (1 if kind == "apply" else 0), (label, name, counts)
         assert counts["envelope"] == (1 if kind == "dense" else 0), (label, name, counts)
         assert counts["rlsep"] == counts["rlsep_grouped"] == counts["rl2d"] == 0, (label, name)
 
@@ -3728,6 +3816,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from thz_image_explorer_tpu_torch import kernels
+    from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import deconvolution as dec
     from thz_image_explorer_tpu_torch.ops import envelope as env
     from thz_image_explorer_tpu_torch.ops import rl2d
@@ -3894,9 +3983,13 @@ def main() -> int:
     sr.spectral_reduction_sums.launches = 0
     rlsep.rl_bands_separable.launches = 0
     rlsep.rl_bands_separable.launches_tiled = 0
+    bs.weighted_spectrum.launches = 0
     n_again = 5
     apply, geometry, deconv_input = drive_apply(ex, 3, 5, n_again,
                                                 np.random.default_rng(args.seed))
+    # one band-sum launch per Apply, none per slider step or click
+    bandsum_apply_launches = bs.weighted_spectrum.launches
+    assert bandsum_apply_launches == 1 + n_again, bandsum_apply_launches
     # 1 + n_again Applies, each one cluster launch per non-empty checkpoint
     # group (9 at the default parameters) and no half-iteration launch
     apply_launches = rlsep.rl_bands_separable.launches
@@ -3907,7 +4000,8 @@ def main() -> int:
     emit(phase="apply", shape=[width, height, n_time], card=smi, dx_mm=0.5,
          psf="synthetic: wx=0.70/f+0.50 mm, wy=0.85/f+0.55 mm, x0=0.3 mm, y0=-0.2 mm",
          params="default DeconvolutionParams (25 bands, 500 iterations)",
-         specred_launches=sr.spectral_reduction_sums.launches, **apply, geometry=geo)
+         specred_launches=sr.spectral_reduction_sums.launches,
+         bandsum_launches=bandsum_apply_launches, **apply, geometry=geo)
 
     # 5b. the 3-D view of the deconvolved final slot: no RL launch
     k = ex.pipeline.index_of("deconvolution")
@@ -3927,6 +4021,18 @@ def main() -> int:
     # on the Apply's own inputs (at its cluster size and at 8) and on ragged
     # ones, the half-iteration kernel on a canvas over the cluster limit and
     # (routed there by half_iteration_route) on the Apply's inputs
+    # 5c. the band-sum kernel vs its plain version on the Apply's own inputs
+    layout = bs._library().thz_bandsum_smem
+    for n_, m_, b_ in ((40000, 769, 25), (262144, 769, 25), (40000, 1153, 25),
+                       (40000, 769, 200), (20000, 1025, 7), (117, 9, 3)):
+        p_ = bs.plan(n_, m_, b_)
+        assert layout(p_["ci"], p_["bc"]) == p_["smem"] == bs.layout_bytes(p_["ci"], p_["bc"]), p_
+    assert bs.library_config()["block_rows"] == bs.BLOCK_ROWS
+    bandsum_200 = check_bandsum(deconv_input, geometry, name)
+    emit(phase="bandsum_kernel_vs_plain", card=smi, grid=[width, height], **bandsum_200,
+         launches_per_apply=bandsum_apply_launches // (1 + n_again),
+         timing="kernel_ms, phase_ms: device time behind a spin (device_ms); plain_ms, "
+                "phase_plain_ms: CUDA events around back-to-back calls (time_ms)")
     padded, px, py, n_iter = dec.rl_inputs(deconv_input, geometry)
     del deconv_input
     rl_shape = list(padded.shape)
@@ -4180,6 +4286,9 @@ def main() -> int:
     tilt_launches = read_counts()
     for kernel in ("specred", "envelope", "rlsep_cluster"):
         assert tilt_launches[kernel] > 0, (kernel, tilt_launches)
+    k_tilt = tilt_ex.pipeline.index_of(DEC)
+    tilt_bandsum = check_bandsum(tilt_ex.pipeline.slots[k_tilt - 1].data,
+                                 tilt_ex.pipeline.filters[DEC]._plan_cache[1], name)
     # the kernels on the tilt path's own inputs: specred at both F, the
     # envelope on the T = 1606 live view's traces (its plain-load route)
     tilt_specred = {}
@@ -4217,7 +4326,7 @@ def main() -> int:
          tilts=per_tilt, launches=tilt_launches,
          view_T=t_view, view_ms=tilt_view_ms, view_points=len(tilt_view[0]),
          envelope_launches_per_view=1, envelope=tilt_envelope,
-         specred=tilt_specred, apply=tilt_apply,
+         specred=tilt_specred, apply=tilt_apply, bandsum=tilt_bandsum,
          replan="zero spectra expanded from a scalar (no allocation)",
          replan_alloc_ms_avoided=alloc_ms, replan_alloc_bytes_avoided=alloc_bytes,
          cufft_plan_ms=plan_ms,
@@ -4400,11 +4509,18 @@ def main() -> int:
     env_ms_512 = device_ms(lambda: env.envelope(flat5, taps5, *args5), inner=5)
     sr_bound_512, _ = specred_bound_ms(n5, f, int(masks5_512.shape[0]), name)
     env_bound_512, _ = envelope_bound_ms(*flat5.shape, int(v35["kernel_radius"]), name)
+    del spec5, masks5_512, flat5
+    # the band sum on the Apply's inputs for this scan (the synthetic PSF at
+    # the default parameters, pitch 0.5 mm: the benchmark's 512x512 Apply)
+    geometry5 = dec.plan_bands(dec.DeconvolutionParams(), synthetic_psf(), t5, (512, 512),
+                               0.5, 0.5)
+    bandsum_512 = check_bandsum(ex5.pipeline.output.data, geometry5, name)
     emit(phase="scale_kernels", shape=[512, 512, 1024], card=smi,
          specred_ms=sr_ms_512, specred_bound_ms=sr_bound_512, envelope_ms=env_ms_512,
-         envelope_bound_ms=env_bound_512,
-         timing="device time behind a spin (device_ms)")
-    del ex5, spec5, masks5_512, flat5
+         envelope_bound_ms=env_bound_512, bandsum=bandsum_512,
+         timing="device time behind a spin (device_ms); the band sum's plain ms: CUDA "
+                "events around back-to-back calls")
+    del ex5, geometry5
     torch.cuda.empty_cache()
 
     # 9a. dotTHz files: save, read, the two-phase open from the file against
@@ -4441,7 +4557,7 @@ def main() -> int:
     md_launches = {kernel: {"world1": multi["world1"]["launches"][kernel],
                             **{f"world{w}": [r["launches"][kernel] for r in multi[f"world{w}"]["ranks"]]
                                for w in (2, 4)}}
-                   for kernel in ("specred", "rlsep_cluster", "envelope")}
+                   for kernel in ("specred", "rlsep_cluster", "envelope", "bandsum")}
     md_block = {f"world{w}": multi[f"world{w}"]["kernels_at_block"] for w in (2, 4)}
 
     # 9c. the incremental Pipeline and its publish on a pixel-sharded cube:
@@ -4454,7 +4570,7 @@ def main() -> int:
     pm_launches, pm_odd_launches = ({kernel: {
         "world1": rec["world1"]["launches"][kernel],
         **{f"world{w}": [r["launches"][kernel] for r in rec[f"world{w}"]["ranks"]]
-           for w in (2, 4)}} for kernel in ("specred", "rlsep_cluster", "envelope")}
+           for w in (2, 4)}} for kernel in ("specred", "rlsep_cluster", "envelope", "bandsum")}
         for rec in (pipe, pipe["odd"]))
     pm_2mod4_launches = {kernel: {
         "world1": pipe["world1"]["launches_2mod4"][kernel],
@@ -4536,6 +4652,33 @@ def main() -> int:
         "tool_psf": dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
                          ms=tool_rl_ms, plain_ms=tool_rl_plain_ms, bound_ms=tool_rl_bound,
                          bound_by=tool_rl_bound_by),
+    }, {
+        "name": "bandsum",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/bandsum.cu",
+        "replaces": _BANDSUM_REPLACES,
+        "launches": bandsum_apply_launches,
+        "launches_per_apply": bandsum_apply_launches // (1 + n_again),
+        "max_abs_err": bandsum_200["max_abs_err"],
+        "ms": bandsum_200["kernel_ms"],
+        "plain_ms": bandsum_200["plain_ms"],
+        "bound_ms": bandsum_200["bound_ms"],
+        "bound_by": "bytes",
+        "ms_512": bandsum_512["kernel_ms"],
+        "plain_ms_512": bandsum_512["plain_ms"],
+        "bound_ms_512": bandsum_512["bound_ms"],
+        "phase_ms_512": bandsum_512["phase_ms"],
+        "phase_plain_ms_512": bandsum_512["phase_plain_ms"],
+        # no single PyTorch call computes the gains, the weight and the product
+        "library_ms": None,
+        "shape": bandsum_200["shape"],
+        "tilt": tilt_bandsum,
+        "launches_tilt": tilt_launches["bandsum"],
+        "launches_psf_tool": psf_launches["bandsum"],
+        "launches_shell": shell_launches["bandsum"],
+        "launches_multi_device": md_launches["bandsum"],
+        "launches_pipeline_mesh": pm_launches["bandsum"],
+        "launches_pipeline_mesh_odd": pm_odd_launches["bandsum"],
     }, {
         "name": "rlsep",
         "route": "cuda",

@@ -15,17 +15,18 @@ a. one ``torch.fft.rfft`` of every trace at ``fft_len`` (cuFFT on the
 b. each band's energy image as ``E_full - E_head - E_tail`` clamped at 0
    (the windowed-convolution energy identity, see
    :func:`_energy_matrices`), a reflect pad by index gather, every band's
-   Richardson-Lucy iterations in one kernel (``ops/rlsep.py``), the crop
-   and ``gains = sqrt(max(u, 0) / img)`` (0/0 gives NaN, as in the
-   reference);
-c. one weighted spectrum ``spec * sum_b g_b T_b`` and one
-   ``torch.fft.irfft``, keeping the centre window.
+   Richardson-Lucy iterations in one kernel (``ops/rlsep.py``);
+c. the gains ``sqrt(max(u, 0) / img)`` of the cropped estimates (0/0 gives
+   NaN, as in the reference) and the weighted spectrum
+   ``spec * sum_b g_b T_b``, written over ``spec`` in one pass
+   (``ops/bandsum.py``: a kernel on the card), and one ``torch.fft.irfft``,
+   keeping the centre window.
 
 The JAX package's TPU workarounds are not carried over: its DFT matmuls
 are cuFFT here, its 0/1 reflect-pad matrices an index gather, its dense
 banded correlation matrices the kernel's direct taps. Plain products
-(``power @ w2``, the head/tail einsums, the band sum) are f32
-``torch.matmul``/``einsum``; TF32 is off (the package sets it at import).
+(``power @ w2``, the head/tail einsums) are f32 ``torch.matmul``/``einsum``;
+TF32 is off (the package sets it at import).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from thz_image_explorer_tpu_torch.models.psf import PSF, create_psf_axes, gaussian
+from thz_image_explorer_tpu_torch.ops.bandsum import weighted_spectrum
 from thz_image_explorer_tpu_torch.ops.firdesign import create_filter_bank
 from thz_image_explorer_tpu_torch.ops import rlsep
 from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable
@@ -298,8 +300,7 @@ def _band_data(geometry: BandGeometry, shape: tuple[int, int, int], device) -> d
         row_valid=dev(np.stack([v for _, v in rows])),
         col_src=dev(np.stack([s for s, _ in cols]), torch.int64),
         col_valid=dev(np.stack([v for _, v in cols])),
-        taps_re=dev(taps_spec.real.astype(np.float32)),
-        taps_im=dev(taps_spec.imag.astype(np.float32)),
+        taps=dev(taps_spec.astype(np.complex64)),
         n_iter=np.asarray(geometry.n_iter, np.int64),
     )
     geometry._device_data[key] = data
@@ -321,16 +322,16 @@ def _prepare_spectra(data: torch.Tensor, bd: dict):
     return spec, power, flat[:, : bd["hseg"]], flat[:, n_time - bd["tseg"]:]
 
 
-def _energy_images(power, xh, xt, bd: dict, shape) -> torch.Tensor:
-    """Phase b, first half: (B, X, Y) band energy images. The clamp at 0
-    stays: f32 cancellation can round ``E_full - E_head - E_tail`` below 0
-    where nearly all of a trace's band energy sits in the head/tail
+def _energy_images(power, xh, xt, bd: dict) -> torch.Tensor:
+    """Phase b, first half: the (N, B) band energies, pixel-major (the band
+    sum's layout; ``energy.T.reshape(B, X, Y)`` is the images'). The clamp
+    at 0 stays: f32 cancellation can round ``E_full - E_head - E_tail``
+    below 0 where nearly all of a trace's band energy sits in the head/tail
     windows, and a negative energy would NaN the whole pixel."""
     e_full = power @ bd["w2"]  # (N, B)
     yh = torch.einsum("nt,btr->nbr", xh, bd["lh"])
     yt = torch.einsum("nt,btr->nbr", xt, bd["lt"])
-    imgs = torch.clamp(e_full - (yh * yh).sum(-1) - (yt * yt).sum(-1), min=0.0)
-    return imgs.T.reshape(-1, shape[0], shape[1])
+    return torch.clamp(e_full - (yh * yh).sum(-1) - (yt * yt).sum(-1), min=0.0)
 
 
 def _reflect_pad(imgs: torch.Tensor, bd: dict) -> torch.Tensor:
@@ -345,34 +346,33 @@ def _reflect_pad(imgs: torch.Tensor, bd: dict) -> torch.Tensor:
 
 
 def _rl_operands(data: torch.Tensor, geometry: BandGeometry):
-    """Phases a and b up to the Richardson-Lucy kernel: ``(bd, spec, imgs,
-    padded)``, the band data, the traces' spectra, the (B, X, Y) energy
-    images and their reflect-padded canvases."""
+    """Phases a and b up to the Richardson-Lucy kernel: ``(bd, spec, energy,
+    padded)``, the band data, the traces' spectra, the (N, B) band energies
+    and the energy images' reflect-padded canvases."""
     bd = _band_data(geometry, tuple(data.shape), data.device)
     spec, power, xh, xt = _prepare_spectra(data, bd)
-    imgs = _energy_images(power, xh, xt, bd, data.shape)
-    return bd, spec, imgs, _reflect_pad(imgs, bd)
+    energy = _energy_images(power, xh, xt, bd)
+    return bd, spec, energy, _reflect_pad(energy.T.reshape(-1, *data.shape[:2]), bd)
 
 
 def rl_inputs(data: torch.Tensor, geometry: BandGeometry):
     """What the Apply hands the Richardson-Lucy kernel for ``data``:
     ``(padded, px, py, n_iter)``. For checks of the kernel at the Apply's
     own shapes."""
-    bd, _spec, _imgs, padded = _rl_operands(data, geometry)
+    bd, _spec, _energy, padded = _rl_operands(data, geometry)
     return padded, bd["px"], bd["py"], bd["n_iter"]
 
 
-def _spectral_band_sum(spec, gains, bd: dict, shape) -> torch.Tensor:
+def _band_sum(spec, u, energy, bd: dict, shape, origin) -> torch.Tensor:
     """Phase c: ``sum_b g_b * irfft(spec * T_b)`` as
     ``irfft(spec * sum_b g_b T_b)`` (the band sum's linearity,
-    ``deconvolution.rs:986-1013``), keeping the centre window."""
+    ``deconvolution.rs:986-1013``), keeping the centre window. The gains
+    come from the estimates ``u`` cropped at the block's place on the canvas;
+    ``spec`` is overwritten."""
     x, y, n_time = shape
-    g = gains.reshape(gains.shape[0], -1)  # (B, N)
-    wr = g.T @ bd["taps_re"]  # (N, m)
-    wi = g.T @ bd["taps_im"]
-    sr = spec.real * wr - spec.imag * wi
-    si = spec.real * wi + spec.imag * wr
-    out = torch.fft.irfft(torch.complex(sr, si), n=bd["fft_len"])
+    offset = (bd["pad_r_max"] + origin[0], bd["pad_c_max"] + origin[1])
+    out = torch.fft.irfft(weighted_spectrum(spec, u, energy, bd["taps"], offset, y),
+                          n=bd["fft_len"])
     return out[:, bd["shift"]: bd["shift"] + n_time].reshape(x, y, n_time)
 
 
@@ -419,11 +419,11 @@ def deconvolve_cube(
         bd = _band_data(geometry, (*grid, shape[2]), dev)
         spec, power, xh, xt = _prepare_spectra(data, bd)
     with spans.span("deconv.energy", dev):
-        imgs = _energy_images(power, xh, xt, bd, shape)
+        energy = _energy_images(power, xh, xt, bd)
         if mesh is None:
-            padded = _reflect_pad(imgs, bd)
+            padded = _reflect_pad(energy.T.reshape(-1, shape[0], shape[1]), bd)
         else:
-            whole = grid_gather(imgs.permute(1, 2, 0), mesh, grid, origin)
+            whole = grid_gather(energy.reshape(shape[0], shape[1], -1), mesh, grid, origin)
             padded = _reflect_pad(whole.permute(2, 0, 1).contiguous(), bd)
     if mesh is None:
         u = _rl_checkpointed(padded, bd["px"], bd["py"], bd["n_iter"], progress, cancelled,
@@ -440,11 +440,7 @@ def deconvolve_cube(
     if u is None:
         return None
     with spans.span("deconv.band_sum", dev):
-        pr, pc = bd["pad_r_max"] + origin[0], bd["pad_c_max"] + origin[1]
-        u = u[:, pr: pr + shape[0], pc: pc + shape[1]]
-        # 0/0 -> NaN, as in the reference
-        gains = torch.sqrt(torch.clamp(u, min=0.0) / imgs)
-        out = _spectral_band_sum(spec, gains, bd, shape)
+        out = _band_sum(spec, u, energy, bd, shape, origin)
     progress(1.0)
     return out
 
