@@ -24,7 +24,12 @@ same commands, the 3-D view and SaveVTU on a small scan on the card and on
 the CPU; then tilt compensation on the reference scan (tilts of 2 and 3
 degrees: T = 1488 and 1606, slider steps, clicks and tilt steps, a live
 view on the envelope's plain-load route, an Apply after tilt, the kernels
-at the new F and T, card vs CPU on a small tilted scan); the PSF tool on
+at the new F and T, card vs CPU on a small tilted scan; ``tilt_kernel``:
+the tilt kernel against its plain route bit for bit at those scans and at
+512x512 (T' = 1620, 1648), its shifts against ``pixel_shifts`` for every
+pixel over -15 to +15 degrees in 0.05 degree steps on three grids and the
+pipeline_mesh blocks, its device ms beside its bound; ``--only
+tilt_kernel`` runs that phase alone after the build); the PSF tool on
 knife-edge traces of the reference fixture's shape (300 x 1001, 20 bands),
 written as ``.thz`` files and loaded by the tool's loader, its PSF
 exported, loaded and applied; a reference pulse loaded as the
@@ -1519,8 +1524,10 @@ def zero_counts():
     from thz_image_explorer_tpu_torch.ops import envelope as env
     from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
+    from thz_image_explorer_tpu_torch.ops import tilt
 
     sr.spectral_reduction_sums.launches = 0
+    tilt.tilt_insert.launches = 0
     env.envelope.launches = 0
     bs.weighted_spectrum.launches = 0
     rlsep.rl_bands_separable.launches = 0
@@ -1535,8 +1542,10 @@ def read_counts():
     from thz_image_explorer_tpu_torch.ops import envelope as env
     from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
+    from thz_image_explorer_tpu_torch.ops import tilt
 
     return dict(specred=sr.spectral_reduction_sums.launches,
+                tilt=tilt.tilt_insert.launches,
                 bandsum=bs.weighted_spectrum.launches,
                 envelope=env.envelope.launches,
                 rlsep_cluster=rlsep.rl_bands_separable.launches,
@@ -1714,6 +1723,139 @@ def small_tilt_reference(seed):
     assert gt == ct > 128, (gt, ct)
     np.testing.assert_array_equal(g.filtered_time, c.filtered_time)
     return gt, compare_plots(g, gi, c, ci, lambda ref: (5e-5, 1e-4))
+
+
+#: the tilt kernel's angle sweep: -15 to +15 degrees in 0.05 degree steps
+#: (the sliders' range, pipeline/filters.py); tilt_y runs over the same
+#: values in another order, so that every angle meets many partners
+_TILT_SWEEP = np.round(np.arange(-300, 301) * 0.05, 2)
+_TILT_SWEEP_Y = _TILT_SWEEP[(np.arange(601) * 7 + 300) % 601]
+#: grids of the sweep: the smoke's 200x200, the 512x512 cells', an odd one;
+#: and the pipeline_mesh phase's blocks (mesh shape, grid): the 200x200
+#: grid on 1x2 and 2x2 ranks, the downscaled 66x66 grid on 2x2 (33-row
+#: blocks)
+_TILT_GRIDS = ((200, 200), (512, 512), (193, 157))
+_TILT_MESH_BLOCKS = (((1, 2), (200, 200)), ((2, 2), (200, 200)), ((2, 2), (66, 66)))
+
+
+def tilt_kernel_shifts(grid, origin, block, angles, d=0.5):
+    """The tilt kernel's own shifts (its ``shifts`` output) for the block
+    ``block`` (w, h) at ``origin`` of ``grid`` at each (tilt_x, tilt_y) of
+    ``angles``, each against ``pixel_shifts``: returns (cases, pixels
+    compared, pixels that differ, the first difference)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import tilt
+
+    n_time = 8
+    data = torch.arange(block[0] * block[1] * n_time, dtype=torch.float32,
+                        device="cuda").reshape(*block, n_time)
+    time_d = torch.arange(n_time, dtype=torch.float32, device="cuda") * np.float32(0.05)
+    shifts = torch.empty(block, dtype=torch.int64, device="cuda")
+    compared = differ = 0
+    first = None
+    for tx, ty in angles:
+        n = tilt.extension_steps(*grid, d, d, tx, ty)
+        tilt.tilt_insert(data, time_d, n, grid, d, d, tx, ty, origin, shifts=shifts)
+        got = shifts.cpu().numpy()
+        want = tilt.pixel_shifts(*block, grid, d, d, tx, ty, n, origin)
+        bad = int((got != want).sum())
+        compared += got.size
+        differ += bad
+        if bad and first is None:
+            first = dict(tilt=[float(tx), float(ty)], grid=list(grid), origin=list(origin),
+                         pixels=bad)
+    return len(angles), compared, differ, first
+
+
+def phase_tilt_kernel(t, cube, name, smi):
+    """The tilt kernel (``csrc/tilt.cu``) against its plain route on the
+    card, bit for bit (output and shifts), at the tilted scans of the tilt
+    phase (200x200x1024 at (2, 2) and (3, 2) degrees: T' = 1488, 1606) and
+    at 512x512x1024 at (1.0, 1.0) and (1.1, 1.0) degrees (T' = 1620, 1648,
+    the scan512.tilt cell's), and at an odd T on an axis from 3.7 ps and
+    at T = 13000 (the window computed where it is used, not kept in
+    shared memory); its shifts against ``pixel_shifts`` for every
+    pixel over the sweep of angles on three grids and on the pipeline_mesh
+    phase's blocks; its device ms against its bytes bound (the cube read
+    once, the extended cube written once) beside the plain route's."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import tilt
+    from thz_image_explorer_tpu_torch.parallel import mesh as pm
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    scans = [("200x200", torch.as_tensor(cube, device="cuda"), torch.as_tensor(t, device="cuda"),
+              ((2.0, 2.0), (3.0, 2.0)))]
+    t512 = torch.arange(1024, device="cuda", dtype=torch.float32) * np.float32(0.05)
+    scans.append(("512x512", torch.randn((512, 512, 1024), generator=gen, device="cuda"), t512,
+                  ((1.0, 1.0), (1.1, 1.0))))
+    # the window at other axes: an odd length starting at 3.7 ps, and one too
+    # long for the window to stay in shared memory (computed where used)
+    for label, shape, t0_ps, angles in (("odd", (37, 29, 1023), 3.7, ((2.5, -1.5),)),
+                                        ("long", (16, 12, 13000), 0.0, ((1.0, 1.0),))):
+        axis = (np.arange(shape[2]) * np.float32(0.05) + np.float32(t0_ps)).astype(np.float32)
+        scans.append((label, torch.randn(shape, generator=gen, device="cuda"),
+                      torch.as_tensor(axis, device="cuda"), angles))
+    cases = {}
+    for label, data, time_d, angles in scans:
+        data = data - data[:, :, :1]  # the DC offset stage before it
+        grid = tuple(data.shape[:2])
+        for tx, ty in angles:
+            n = tilt.extension_steps(*grid, 0.5, 0.5, tx, ty)
+            shifts = torch.empty(grid, dtype=torch.int64, device="cuda")
+            before = tilt.tilt_insert.launches
+            got = tilt.tilt_insert(data, time_d, n, grid, 0.5, 0.5, tx, ty, shifts=shifts)
+            assert tilt.tilt_insert.launches == before + 1
+            want = tilt.tilt_insert_plain(data, time_d, n, grid, 0.5, 0.5, tx, ty)
+            torch.cuda.synchronize()
+            t_out = int(got.shape[2])
+            assert got.shape == want.shape and torch.equal(got, want), (label, tx, ty)
+            assert np.array_equal(shifts.cpu().numpy(),
+                                  tilt.pixel_shifts(*grid, grid, 0.5, 0.5, tx, ty, n))
+            again = tilt.tilt_insert(data, time_d, n, grid, 0.5, 0.5, tx, ty)
+            assert torch.equal(again, got), (label, tx, ty)
+            del want, again
+            entry = dict(T=int(data.shape[2]), T_out=t_out, bit_for_bit=True, shifts_equal=True,
+                         rerun_bit_identical=True)
+            if label == "512x512":
+                n_pix = grid[0] * grid[1]
+                n_bytes = (n_pix * data.shape[2] + n_pix * t_out) * 4
+                bound = n_bytes / memory_rate(name) * 1e3
+                ms = device_ms(lambda: tilt.tilt_insert(data, time_d, n, grid, 0.5, 0.5, tx, ty))
+                plain = time_ms(lambda: tilt.tilt_insert_plain(data, time_d, n, grid, 0.5, 0.5,
+                                                               tx, ty), reps=5, inner=2)
+                entry.update(kernel_ms=ms, bound_ms=bound, bound_by="bytes",
+                             roofline_pct=100.0 * bound / ms, plain_ms=plain)
+            cases[f"{label}_{tx:g}_{ty:g}"] = entry
+            del got
+        del data, time_d
+        torch.cuda.empty_cache()
+    assert {1488, 1606, 1620, 1648} <= {c["T_out"] for c in cases.values()}, cases
+    sweep = list(zip(_TILT_SWEEP.tolist(), _TILT_SWEEP_Y.tolist()))
+    grids = {}
+    for grid in _TILT_GRIDS:
+        n_cases, compared, differ, first = tilt_kernel_shifts(grid, (0, 0), grid, sweep)
+        grids[f"{grid[0]}x{grid[1]}"] = dict(angles=n_cases, pixels=compared, differ=differ,
+                                             first_difference=first)
+    for shape, grid in _TILT_MESH_BLOCKS:
+        mesh = pm.Mesh(shape)
+        tot = [0, 0]
+        first = None
+        for r in range(mesh.world):
+            x0, x1, y0, y1 = mesh.block(r, grid)
+            got = tilt_kernel_shifts(grid, (x0, y0), (x1 - x0, y1 - y0), sweep)
+            tot = [a + b for a, b in zip(tot, got[1:3])]
+            first = first or got[3]
+        grids[f"mesh{shape[0]}x{shape[1]}_{grid[0]}x{grid[1]}"] = dict(
+            angles=len(sweep), blocks=mesh.world, pixels=tot[0], differ=tot[1],
+            first_difference=first)
+    assert all(g["differ"] == 0 for g in grids.values()), grids
+    emit(phase="tilt_kernel", card=smi, cases=cases, shifts=grids,
+         sweep_degrees=[float(_TILT_SWEEP[0]), float(_TILT_SWEEP[-1]), 0.05],
+         replaces="none: thz_image_explorer_tpu/ops/tilt.py's shifts and gather, in XLA",
+         timing="kernel: device time behind a spin (device_ms); plain: CUDA events over "
+                "back-to-back calls (time_ms)")
 
 
 def replan_alloc_ms(shape_f):
@@ -3392,7 +3534,8 @@ def pm_check_launches(record, label):
     """Each rank's launches per command: 1 specred launch per chain run and
     none per click; 1-9 cluster RL launches and 1 band-sum launch per Apply,
     none elsewhere; no half-iteration RL launch; 1 envelope launch per dense
-    extraction."""
+    extraction; at most 1 tilt launch per tilt or downscale command (the
+    tilt stage re-run while active), none elsewhere."""
     for name, kind, _ms, counts in record:
         want_sr = 0 if kind == "click" or kind == "dense" else 1
         assert counts["specred"] == want_sr, (label, name, counts)
@@ -3402,6 +3545,8 @@ def pm_check_launches(record, label):
             assert counts["rlsep_cluster"] == 0, (label, name, counts)
         assert counts["bandsum"] == (1 if kind == "apply" else 0), (label, name, counts)
         assert counts["envelope"] == (1 if kind == "dense" else 0), (label, name, counts)
+        assert counts["tilt"] <= (1 if kind in ("tilt", "downscale") else 0), (label, name,
+                                                                               counts)
         assert counts["rlsep"] == counts["rlsep_grouped"] == counts["rl2d"] == 0, (label, name)
 
 
@@ -3808,6 +3953,8 @@ def pm_pass(t, cube, npy, tmp, sub, seed, short, name, device):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("tilt_kernel",),
+                    help="after the device and build phases, run this phase alone")
     args = ap.parse_args()
 
     import torch
@@ -3856,6 +4003,11 @@ def main() -> int:
     # the reference scan of the main path (also the kernel's pulse input)
     width, height, n_time = 200, 200, 1024
     t, cube = synthetic_scan(width, height, n_time, seed=args.seed)
+    if args.only == "tilt_kernel":
+        phase_tilt_kernel(t, cube, name, smi)
+        print(json.dumps({"ok": True, "only": args.only, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     # 3. kernel vs plain at the main path's shapes and ragged ones
@@ -4284,7 +4436,7 @@ def main() -> int:
     per_tilt, tilt_spectra, (tilt_view_ms, tilt_view, tilt_flat), tilt_apply = drive_tilt(
         tilt_ex, np.random.default_rng(args.seed + 2), 6, 6, 4)
     tilt_launches = read_counts()
-    for kernel in ("specred", "envelope", "rlsep_cluster"):
+    for kernel in ("specred", "envelope", "rlsep_cluster", "tilt"):
         assert tilt_launches[kernel] > 0, (kernel, tilt_launches)
     k_tilt = tilt_ex.pipeline.index_of(DEC)
     tilt_bandsum = check_bandsum(tilt_ex.pipeline.slots[k_tilt - 1].data,
@@ -4336,6 +4488,7 @@ def main() -> int:
                 "spin (device_ms)")
     del tilt_spectra, tilt_flat, tilt_view
     torch.cuda.empty_cache()
+    phase_tilt_kernel(t, cube, name, smi)
 
     # 8c. the PSF tool end to end: knife-edge traces of the reference
     # fixture's shape -> compute_psf on the card -> export -> load -> Apply

@@ -32,6 +32,11 @@ os.environ.setdefault("THZ_XLA_CACHE", "/tmp/thz-test-xla-cache")
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a hand-written kernel); skips without one")
+
+
 @pytest.fixture(autouse=True)
 def _isolated_config_dir(tmp_path, monkeypatch):
     """Point the settings/psf-tool persistence at a per-test directory so

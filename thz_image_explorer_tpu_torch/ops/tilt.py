@@ -7,9 +7,10 @@ trace, windowed by the adapted Blackman over [0, 7] ps, is inserted at its
 own offset; the head is filled with the pixel's raw first sample and the
 tail with zeros.
 
-The geometry is host data. The extension count, the per-pixel offsets and
-the new time axis are computed in numpy f32, operation for operation as
-the JAX kernel runs once XLA has compiled it: divisions by constants are
+The extension count and the new time axis are host data, computed in numpy
+f32; so are the per-pixel offsets of :func:`pixel_shifts` (the CPU route's
+shifts and the card's oracle). All follow, operation for operation, the JAX
+kernel as XLA compiles it: divisions by constants are
 multiplications by their f32 reciprocals, constant factors are folded, and
 the sum of the two offsets is one fused multiply-add of the second
 product (``fma32``): the integer shifts equal JAX's bit for bit, where a
@@ -18,18 +19,37 @@ follows the same rules and lands within one f32 step of JAX's (which
 product of a linspace sample XLA fuses varies with the program), its ends
 exactly. The host time axis is also the stage's
 ``host_time_out``, so the executor never copies the new axis back from the
-device. The device work is one ``torch.gather`` of the windowed cube.
+device.
+
+The insertion is :func:`tilt_insert`. On a CUDA tensor it launches
+``csrc/tilt.cu`` (one launch a call, counted by ``tilt_insert.launches``),
+which computes each pixel's shift on the card with the f32 operations of
+:func:`pixel_shifts` in the same order, and the window with those of
+``ops/windows.adapted_blackman_window``, each written as its rounding
+intrinsic, and writes the extended cube in one pass: no W x H host array,
+no index tensor, no launches for the window. On a CPU tensor it runs
+:func:`tilt_insert_plain`, the window in PyTorch and the gather with the
+host shifts; on any other device it raises. The two agree bit for bit on
+the card: the same shifts, the same window, the same one-rounding
+products.
+
+Spans (``utils/spans.py``): ``tilt.geometry`` around the extension count
+and the new axis (host work), ``tilt.insert`` around the insertion
+(device-timed).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
 import torch
 
+from thz_image_explorer_tpu_torch import kernels
 from thz_image_explorer_tpu_torch.data import ScanCube
 from thz_image_explorer_tpu_torch.ops.windows import adapted_blackman_window
+from thz_image_explorer_tpu_torch.utils import spans
 
 C_MM_PER_PS = 0.299792458  # speed of light (tilt_compensation.rs:119)
 DT_PS = 0.05  # hard-coded extension step (tilt_compensation.rs:122)
@@ -138,31 +158,145 @@ def geometry(cube: ScanCube, tilt_x_deg: float, tilt_y_deg: float,
     return extension_steps(vw, vh, cube.dx, cube.dy, tilt_x_deg, tilt_y_deg)
 
 
+#: the adapted Blackman's taper of each trace before its insertion: the
+#: first 0 and the last 7 ps of the input axis (``tilt_compensation.rs``)
+WINDOW_PS = (0.0, 7.0)
+
+
+def _check(data, time, num_steps, origin) -> None:
+    if data.dtype != torch.float32 or data.ndim != 3 or data.shape[2] < 1:
+        raise ValueError(f"data must be (W, H, T) float32 with T >= 1, got {data.dtype} "
+                         f"{tuple(data.shape)}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    if time.dtype != torch.float32 or tuple(time.shape) != (data.shape[2],) \
+            or not time.is_contiguous():
+        raise ValueError(f"time must be a contiguous ({data.shape[2]},) float32 tensor, got "
+                         f"{time.dtype} {tuple(time.shape)}")
+    if time.device != data.device:
+        raise ValueError(f"data on {data.device}, time on {time.device}")
+    if num_steps < 0:
+        raise ValueError(f"num_steps must be >= 0, got {num_steps}")
+    if origin[0] < 0 or origin[1] < 0:
+        raise ValueError(f"origin must be >= 0, got {origin}")
+    if data.shape[2] + 2 * num_steps >= 2**31 or max(origin) + max(data.shape[:2]) >= 2**24:
+        raise ValueError("the extended trace or the grid position does not fit the kernel")
+
+
+def tilt_insert_plain(data: torch.Tensor, time: torch.Tensor, num_steps: int, valid_wh,
+                      dx: float, dy: float, tilt_x_deg: float, tilt_y_deg: float,
+                      origin=(0, 0), shifts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The insertion in plain PyTorch (the CPU path, and the yardstick the
+    kernel is checked against on the card): the window of ``time``, the
+    host shifts of :func:`pixel_shifts`, an index per output sample, a
+    gather of the windowed cube, and the head and tail selected around it."""
+    _check(data, time, num_steps, origin)
+    width, height, n_time = data.shape
+    dev = data.device
+    win = adapted_blackman_window(time, *WINDOW_PS)
+    insert = torch.as_tensor(pixel_shifts(width, height, valid_wh, dx, dy, tilt_x_deg,
+                                          tilt_y_deg, num_steps, tuple(origin)), device=dev)
+    if shifts is not None:
+        shifts.copy_(insert)
+    k = torch.arange(n_time + 2 * num_steps, device=dev)
+    idx = k[None, None, :] - insert[:, :, None]
+    head, inside = idx < 0, idx < n_time
+    gathered = torch.gather(data * win, 2, idx.clamp_(0, n_time - 1))
+    return torch.where(head, data[:, :, :1],
+                       torch.where(inside, gathered, gathered.new_zeros(())))
+
+
+def tilt_insert(data: torch.Tensor, time: torch.Tensor, num_steps: int, valid_wh,
+                dx: float, dy: float, tilt_x_deg: float, tilt_y_deg: float,
+                origin=(0, 0), shifts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The (W, H, T + 2 ``num_steps``) f32 extended cube of the contiguous
+    (W, H, T) f32 ``data`` on its (T,) f32 axis ``time`` (module docstring):
+    each pixel's trace times the adapted Blackman of ``time`` over
+    :data:`WINDOW_PS`, inserted at its shift (:func:`pixel_shifts` of the
+    block at ``origin`` in the grid, around the centre of ``valid_wh``), the
+    head the raw first sample, the tail zeros. ``shifts``: an optional
+    (W, H) int64 tensor on ``data``'s device that receives the shifts used.
+    ``tilt_insert.launches`` counts kernel launches."""
+    _check(data, time, num_steps, origin)
+    if shifts is not None and (shifts.dtype != torch.int64 or shifts.device != data.device
+                               or tuple(shifts.shape) != tuple(data.shape[:2])
+                               or not shifts.is_contiguous()):
+        raise ValueError(f"shifts must be a contiguous {tuple(data.shape[:2])} int64 tensor on "
+                         f"{data.device}")
+    if data.device.type == "cpu":
+        return tilt_insert_plain(data, time, num_steps, valid_wh, dx, dy, tilt_x_deg,
+                                 tilt_y_deg, origin, shifts)
+    if data.device.type != "cuda":
+        raise ValueError(f"no tilt kernel for device {data.device}")
+    with torch.cuda.device(data.device):
+        return _run_kernel(data, time, num_steps, valid_wh, dx, dy, tilt_x_deg, tilt_y_deg,
+                           origin, shifts)
+
+
+tilt_insert.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = kernels.load("tilt")
+    fn = lib.thz_tilt_insert
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                       + [ctypes.c_float] * 9 + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+#: csrc/tilt.cu's warps a block (a pixel each at a time) and resident blocks
+#: an SM (its kWarps, kBlocksPerSm; the launch refuses more blocks than
+#: pixels need)
+WARPS, BLOCKS_PER_SM = 8, 8
+
+
+def _run_kernel(data, time, num_steps, valid_wh, dx, dy, tilt_x_deg, tilt_y_deg, origin,
+                shifts) -> torch.Tensor:
+    width, height, n_time = data.shape
+    out = torch.empty((width, height, n_time + 2 * num_steps), dtype=torch.float32,
+                      device=data.device)
+    n = width * height
+    if n == 0:
+        return out
+    lib = _library()
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    # the persistent grid: a warp a pixel, up to the blocks the card holds at once
+    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+    blocks = min(-(-n // WARPS), BLOCKS_PER_SM * sms)
+    f32 = [float(_F32(v)) for v in (dx, dy, tilt_x_deg, tilt_y_deg, _DEG, _INV_C, _INV_DT,
+                                    *WINDOW_PS)]
+    err = lib.thz_tilt_insert(data.data_ptr(), time.data_ptr(), out.data_ptr(),
+                              None if shifts is None else shifts.data_ptr(), n, height,
+                              n_time, n_time + 2 * num_steps, int(origin[0]), int(origin[1]),
+                              int(valid_wh[0]), int(valid_wh[1]), int(num_steps), *f32,
+                              blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"tilt kernel launch failed: CUDA error {err}")
+    tilt_insert.launches += 1
+    return out
+
+
 def tilt_compensate(cube: ScanCube, tilt_x_deg: float, tilt_y_deg: float,
                     valid_wh=None, host_time: Optional[np.ndarray] = None) -> ScanCube:
     """Apply tilt compensation; returns ``cube`` itself when dx/dy are
     unknown. ``host_time`` is the host copy of ``cube.time`` (read from the
     device when None). A block of a sharded cube is shifted at its
     ``origin`` in the grid, around the centre of the global valid region."""
-    num_steps = geometry(cube, tilt_x_deg, tilt_y_deg, valid_wh)
-    if num_steps is None:
-        return cube
-    if host_time is None:
-        host_time = cube.time.cpu().numpy()
-    vwh = valid_wh if valid_wh is not None else cube.grid_wh
+    with spans.span("tilt.geometry"):
+        num_steps = geometry(cube, tilt_x_deg, tilt_y_deg, valid_wh)
+        if num_steps is None:
+            return cube
+        if host_time is None:
+            host_time = cube.time.cpu().numpy()
+        new_time = extended_time(host_time, num_steps)
     dev = cube.device
-    n_time = cube.n_time
-    new_time = extended_time(host_time, num_steps)
-    insert = torch.as_tensor(
-        pixel_shifts(cube.width, cube.height, vwh, cube.dx, cube.dy,
-                     tilt_x_deg, tilt_y_deg, num_steps, cube.origin),
-        device=dev,
-    )
-    win = adapted_blackman_window(cube.time, 0.0, 7.0)
-    k = torch.arange(new_time.shape[0], device=dev)
-    idx = k[None, None, :] - insert[:, :, None]
-    head, inside = idx < 0, idx < n_time
-    gathered = torch.gather(cube.data * win, 2, idx.clamp_(0, n_time - 1))
-    data = torch.where(head, cube.data[:, :, :1],
-                       torch.where(inside, gathered, gathered.new_zeros(())))
-    return cube.replace(data=data, time=torch.as_tensor(new_time, device=dev))
+    # the new axis goes to the card before the insertion is queued: a copy
+    # from pageable memory waits for the stream
+    time_out = torch.as_tensor(new_time, device=dev)
+    with spans.span("tilt.insert", device=dev):
+        data = tilt_insert(cube.data.contiguous(), cube.time.contiguous(), num_steps,
+                           valid_wh if valid_wh is not None else cube.grid_wh,
+                           cube.dx, cube.dy, tilt_x_deg, tilt_y_deg, cube.origin)
+    return cube.replace(data=data, time=time_out)

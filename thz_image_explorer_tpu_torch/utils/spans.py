@@ -24,7 +24,8 @@ its take) and ``worker.command`` in ``pipeline/worker.py``;
 ``publish`` and ``publish.masks`` in ``pipeline/explorer.py``;
 ``publish.to_host`` in ``pipeline/publish.py``; ``deconv.plan`` in
 ``pipeline/filters.py``; ``deconv.spectra``, ``deconv.energy``,
-``deconv.rl`` and ``deconv.band_sum`` in ``ops/deconvolution.py``.
+``deconv.rl`` and ``deconv.band_sum`` in ``ops/deconvolution.py``;
+``tilt.geometry`` and ``tilt.insert`` in ``ops/tilt.py``.
 """
 
 from __future__ import annotations
