@@ -29,7 +29,13 @@ the tilt kernel against its plain route bit for bit at those scans and at
 512x512 (T' = 1620, 1648), its shifts against ``pixel_shifts`` for every
 pixel over -15 to +15 degrees in 0.05 degree steps on three grids and the
 pipeline_mesh blocks, its device ms beside its bound; ``--only
-tilt_kernel`` runs that phase alone after the build); the PSF tool on
+tilt_kernel`` runs that phase alone after the build); ``polar_kernel``: the
+FFT stage's kernel (``csrc/polar.cu``) against its plain route at 512x512
+(F = 513, 811, 825), at T = 13000, a single row and a NaN bin, the
+amplitudes and wrapped steps bit for bit, the phases bit for bit where
+PyTorch's scan takes the kernel's chunks, its device ms beside its bound,
+the plain route's ms and the issue floor (``--only polar_kernel``); the
+main path counts its launches (one a slider step, none a click); the PSF tool on
 knife-edge traces of the reference fixture's shape (300 x 1001, 20 bands),
 written as ``.thz`` files and loaded by the tool's loader, its PSF
 exported, loaded and applied; a reference pulse loaded as the
@@ -1522,12 +1528,13 @@ def zero_counts():
     """Every kernel wrapper's launch count set to 0."""
     from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import envelope as env
-    from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
+    from thz_image_explorer_tpu_torch.ops import polar, rl2d, rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
     from thz_image_explorer_tpu_torch.ops import tilt
 
     sr.spectral_reduction_sums.launches = 0
     tilt.tilt_insert.launches = 0
+    polar.amplitude_phase.launches = 0
     env.envelope.launches = 0
     bs.weighted_spectrum.launches = 0
     rlsep.rl_bands_separable.launches = 0
@@ -1540,12 +1547,13 @@ def zero_counts():
 def read_counts():
     from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import envelope as env
-    from thz_image_explorer_tpu_torch.ops import rl2d, rlsep
+    from thz_image_explorer_tpu_torch.ops import polar, rl2d, rlsep
     from thz_image_explorer_tpu_torch.ops import specred as sr
     from thz_image_explorer_tpu_torch.ops import tilt
 
     return dict(specred=sr.spectral_reduction_sums.launches,
                 tilt=tilt.tilt_insert.launches,
+                polar=polar.amplitude_phase.launches,
                 bandsum=bs.weighted_spectrum.launches,
                 envelope=env.envelope.launches,
                 rlsep_cluster=rlsep.rl_bands_separable.launches,
@@ -1856,6 +1864,141 @@ def phase_tilt_kernel(t, cube, name, smi):
          replaces="none: thz_image_explorer_tpu/ops/tilt.py's shifts and gather, in XLA",
          timing="kernel: device time behind a spin (device_ms); plain: CUDA events over "
                 "back-to-back calls (time_ms)")
+
+
+def torch_cuda_scan_chunk(rows, f):
+    """The bins a chunk of PyTorch's CUDA ``cumsum`` of ``rows`` rows of
+    ``f`` bins takes (ATen's ``get_log_num_threads_x_inner_scan``, uint32
+    arithmetic, two bins a thread); 0 for a single row (CUB's scan). Where
+    it is 32, ``csrc/polar.cu`` sums in PyTorch's order."""
+    if rows == 1:
+        return 0
+    lx = ly = 0
+    while (1 << lx) < f:
+        lx += 1
+    while (1 << ly) < rows:
+        ly += 1
+    lx = ((9 + ((lx - ly) & 0xFFFFFFFF)) & 0xFFFFFFFF) // 2
+    return 2 << min(max(4, lx), 9)
+
+
+def polar_instructions(so_path, unroll):
+    """SASS instructions per bin of ``polar_unwrap_kernel<false>``: its
+    innermost loop (``unroll`` chunks of 32 bins, a bin a lane each), a
+    static count (the slow paths of the accurate hypotf and atan2f count
+    too)."""
+    loops = [lp for lp in sass_loops(so_path, "polar_unwrap_kernelILb0E") if lp["SHFL.IDX"]]
+    return max(sum(lp.values()) for lp in loops) / unroll if loops else None
+
+
+def check_polar(spec, label):
+    """``csrc/polar.cu`` against its plain route on ``spec`` (..., F): the
+    amplitudes and the wrapped steps bit for bit, the phases bit for bit
+    where PyTorch's scan takes the kernel's chunks of 32 and within
+    2 k 2^-24 sum_{j <= k} |inc_j| of the plain route everywhere, a rerun
+    bit-identical. Returns the record of the case."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import polar
+
+    def bits(x):
+        return x.view(torch.int32)
+
+    f = int(spec.shape[-1])
+    rows = spec.numel() // f
+    inc = torch.empty(spec.shape, dtype=torch.float32, device=spec.device)
+    want_inc = torch.empty_like(inc)
+    before = polar.amplitude_phase.launches
+    amp, ph = polar.amplitude_phase(spec, increments=inc)
+    assert polar.amplitude_phase.launches == before + 1, label
+    want_amp, want_ph = polar.amplitude_phase_plain(spec, increments=want_inc)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(amp), bits(want_amp)), (label, "amplitudes")
+    assert torch.equal(bits(inc), bits(want_inc)), (label, "wrapped steps")
+    inc2, ph2, want2 = (x.reshape(rows, f) for x in (inc, ph, want_ph))
+    k = torch.arange(f, device=spec.device, dtype=torch.float64)
+    bound = 2.0 * k * 2.0**-24 * torch.cumsum(inc2.double().abs(), dim=-1)
+    gap = (ph2.double() - want2.double()).abs()
+    finite = torch.isfinite(bound)
+    assert bool((gap[finite] <= bound[finite]).all()), (label, "phases beyond the bound")
+    chunk = torch_cuda_scan_chunk(rows, f)
+    same = bool(torch.equal(bits(ph), bits(want_ph)))
+    assert same or chunk != 32, (label, "phases differ where PyTorch takes the kernel's order")
+    again = polar.amplitude_phase(spec)
+    assert torch.equal(bits(again[0]), bits(amp)) and torch.equal(bits(again[1]), bits(ph)), \
+        (label, "rerun")
+    rel = (gap[finite] / bound[finite].clamp_min(1e-30)).max().item() if f > 1 else 0.0
+    return dict(rows=rows, F=f, amplitudes_bit_for_bit=True, steps_bit_for_bit=True,
+                phases_bit_for_bit=same, torch_scan_chunk=chunk,
+                phase_gap_over_bound=rel, rerun_bit_identical=True)
+
+
+def phase_polar_kernel(name, smi):
+    """The FFT stage's kernel (``csrc/polar.cu``) against its plain route on
+    the card (:func:`check_polar`) on the spectra of 512x512 scans at
+    T = 1024 (F = 513, the drag cell's) and T' = 1620, 1648 (F = 811, 825,
+    the tilt cell's), at T = 13000 (F = 6501; 80x80 rows, where PyTorch's
+    scan takes chunks of 32, and 16x12 rows, where it takes chunks of 256),
+    a single row and a NaN bin; a block's rows (the first and last half of
+    the 512x512 cube) against the whole cube's, bit for bit; at each of the
+    first four shapes, its device ms beside its bytes bound (the spectrum
+    read once, the two planes written once), the plain route's ms and the
+    issue floor."""
+    import torch
+
+    from thz_image_explorer_tpu_torch import kernels
+    from thz_image_explorer_tpu_torch.ops import polar
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    clock = sm_clock_hz()
+    per_bin = polar_instructions(kernels.library_path("polar"),
+                                 polar.config(kernels.load("polar"))[2])
+    cases = {}
+    for label, shape, timed in (("512x512_T1024", (512, 512, 1024), True),
+                                ("512x512_T1620", (512, 512, 1620), True),
+                                ("512x512_T1648", (512, 512, 1648), True),
+                                ("80x80_T13000", (80, 80, 13000), True),
+                                ("16x12_T13000", (16, 12, 13000), False),
+                                ("1x1_T1024", (1, 1, 1024), False)):
+        spec = torch.fft.rfft(torch.randn(shape, generator=gen, device="cuda"), dim=-1)
+        entry = check_polar(spec, label)
+        if label.startswith("512x512"):
+            half = shape[0] // 2
+            amp, ph = polar.amplitude_phase(spec)
+            for x0, x1 in ((0, half), (half, shape[0])):
+                b_amp, b_ph = polar.amplitude_phase(spec[x0:x1].contiguous())
+                assert torch.equal(b_amp.view(torch.int32), amp[x0:x1].view(torch.int32))
+                assert torch.equal(b_ph.view(torch.int32), ph[x0:x1].view(torch.int32))
+            entry["block_rows_bit_for_bit"] = True
+            del amp, ph, b_amp, b_ph
+        if timed:
+            rows, f = entry["rows"], entry["F"]
+            bound = rows * f * 16 / memory_rate(name) * 1e3
+            ms = device_ms(lambda: polar.amplitude_phase(spec))
+            entry.update(kernel_ms=ms, bound_ms=bound, bound_by="bytes",
+                         roofline_pct=100.0 * bound / ms,
+                         issue_floor_ms=(issue_floor_ms(per_bin, rows * -(-f // 32) * 32, clock)
+                                         if per_bin else None),
+                         plain_ms=time_ms(lambda: polar.amplitude_phase_plain(spec),
+                                          reps=5, inner=2))
+        cases[label] = entry
+        del spec
+        torch.cuda.empty_cache()
+    nan_spec = torch.fft.rfft(torch.randn((64, 48, 1024), generator=gen, device="cuda"), dim=-1)
+    nan_spec[5, 7, 200] = complex(float("nan"), 1.0)
+    a_nan, p_nan = polar.amplitude_phase(nan_spec)
+    w_nan = polar.amplitude_phase_plain(nan_spec)
+    assert torch.equal(torch.isnan(a_nan), torch.isnan(w_nan[0]))
+    assert torch.equal(torch.isnan(p_nan), torch.isnan(w_nan[1]))
+    assert int(torch.isnan(p_nan).sum()) == 513 - 200
+    emit(phase="polar_kernel", card=smi, cases=cases, sass_per_bin=per_bin, sm_clock_hz=clock,
+         nan_bin="NaN from the bin on in the phases, at the bin alone in the amplitudes, "
+                 "as the plain route",
+         replaces="none: the JAX package's amplitude, angle and unwrap in XLA "
+                  "(thz_image_explorer_tpu/ops/fourier.py:forward_fft)",
+         timing="kernel: device time behind a spin (device_ms); plain: CUDA events over "
+                "back-to-back calls (time_ms)")
+    return cases
 
 
 def replan_alloc_ms(shape_f):
@@ -3535,7 +3678,9 @@ def pm_check_launches(record, label):
     none per click; 1-9 cluster RL launches and 1 band-sum launch per Apply,
     none elsewhere; no half-iteration RL launch; 1 envelope launch per dense
     extraction; at most 1 tilt launch per tilt or downscale command (the
-    tilt stage re-run while active), none elsewhere."""
+    tilt stage re-run while active), none elsewhere; at most 1 polar launch
+    per chain run (one from the FFT stage or before), none per click,
+    dense extraction or Apply."""
     for name, kind, _ms, counts in record:
         want_sr = 0 if kind == "click" or kind == "dense" else 1
         assert counts["specred"] == want_sr, (label, name, counts)
@@ -3547,6 +3692,7 @@ def pm_check_launches(record, label):
         assert counts["envelope"] == (1 if kind == "dense" else 0), (label, name, counts)
         assert counts["tilt"] <= (1 if kind in ("tilt", "downscale") else 0), (label, name,
                                                                                counts)
+        assert counts["polar"] <= (0 if kind == "apply" else want_sr), (label, name, counts)
         assert counts["rlsep"] == counts["rlsep_grouped"] == counts["rl2d"] == 0, (label, name)
 
 
@@ -3953,7 +4099,7 @@ def pm_pass(t, cube, npy, tmp, sub, seed, short, name, device):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tilt_kernel",),
+    ap.add_argument("--only", choices=("tilt_kernel", "polar_kernel"),
                     help="after the device and build phases, run this phase alone")
     args = ap.parse_args()
 
@@ -3966,6 +4112,7 @@ def main() -> int:
     from thz_image_explorer_tpu_torch.ops import bandsum as bs
     from thz_image_explorer_tpu_torch.ops import deconvolution as dec
     from thz_image_explorer_tpu_torch.ops import envelope as env
+    from thz_image_explorer_tpu_torch.ops import polar
     from thz_image_explorer_tpu_torch.ops import rl2d
     from thz_image_explorer_tpu_torch.ops import rlsep
     from thz_image_explorer_tpu_torch.ops import voxel
@@ -4003,8 +4150,11 @@ def main() -> int:
     # the reference scan of the main path (also the kernel's pulse input)
     width, height, n_time = 200, 200, 1024
     t, cube = synthetic_scan(width, height, n_time, seed=args.seed)
-    if args.only == "tilt_kernel":
-        phase_tilt_kernel(t, cube, name, smi)
+    if args.only:
+        if args.only == "tilt_kernel":
+            phase_tilt_kernel(t, cube, name, smi)
+        else:
+            phase_polar_kernel(name, smi)
         print(json.dumps({"ok": True, "only": args.only, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
         return 0
@@ -4045,21 +4195,34 @@ def main() -> int:
 
     hdf5 = "save_file + open_file (io/hdf5.py), the opened cube bit for bit the arrays'"
     sr.spectral_reduction_sums.launches = 0
+    polar.amplitude_phase.launches = 0
     slider_ms, click_ms, slider_launch, click_launch = drive_commands(
         ex, open_scan, cube, 10, 20, np.random.default_rng(args.seed)
     )
     tmp.cleanup()
     main_launches = sr.spectral_reduction_sums.launches
+    main_polar_launches = polar.amplitude_phase.launches
     check_published(ex, width, height, n_time)
     assert all(k == 1 for k in slider_launch), slider_launch
     assert all(k == 0 for k in click_launch), click_launch
-    assert main_launches > 0
+    assert main_launches > 0 and main_polar_launches >= len(slider_ms)
+    # the FFT stage's kernel: one launch a slider step from the FFT window
+    # (a step forth and the step back to the drive's last value), none a click
+    def polar_count():
+        return polar.amplitude_phase.launches
+
+    polar_step = [command_ms(lambda v=v: ex.set_fft_window_low(v), polar_count)[1]
+                  for v in (1.55, 1.0 + 0.05 * 10)]
+    polar_click = command_ms(lambda: ex.set_selected_pixel(*ex.pixel_selected), polar_count)[1]
+    assert (polar_step, polar_click) == ([1, 1], 0), (polar_step, polar_click)
     emit(phase="main_path", shape=[width, height, n_time], card=smi, hdf5=hdf5,
          rois=4, slider_updates=len(slider_ms), clicks=len(click_ms),
          slider_ms_median=statistics.median(slider_ms), slider_ms=slider_ms,
          click_ms_median=statistics.median(click_ms),
          specred_launches=main_launches,
          launches_per_slider_update=slider_launch[0], launches_per_click=click_launch[0],
+         polar_launches=main_polar_launches, polar_launches_per_slider_update=polar_step[0],
+         polar_launches_per_click=polar_click,
          stage_ms=ex.pipeline.timings_ms)
     main_spec = ex.pipeline.slots[ex.pipeline.fft_index].fft.reshape(n, f)
     main_masks = torch.cat([torch.ones((1, n), device=dev),
@@ -4436,7 +4599,7 @@ def main() -> int:
     per_tilt, tilt_spectra, (tilt_view_ms, tilt_view, tilt_flat), tilt_apply = drive_tilt(
         tilt_ex, np.random.default_rng(args.seed + 2), 6, 6, 4)
     tilt_launches = read_counts()
-    for kernel in ("specred", "envelope", "rlsep_cluster", "tilt"):
+    for kernel in ("specred", "envelope", "rlsep_cluster", "tilt", "polar"):
         assert tilt_launches[kernel] > 0, (kernel, tilt_launches)
     k_tilt = tilt_ex.pipeline.index_of(DEC)
     tilt_bandsum = check_bandsum(tilt_ex.pipeline.slots[k_tilt - 1].data,
@@ -4489,6 +4652,7 @@ def main() -> int:
     del tilt_spectra, tilt_flat, tilt_view
     torch.cuda.empty_cache()
     phase_tilt_kernel(t, cube, name, smi)
+    polar_cases = phase_polar_kernel(name, smi)
 
     # 8c. the PSF tool end to end: knife-edge traces of the reference
     # fixture's shape -> compute_psf on the card -> export -> load -> Apply
@@ -4917,6 +5081,23 @@ def main() -> int:
         "library_ms": None,
         "shape": rl2d_shape + [9, 9],
         "n_iter": n0,
+    }, {
+        "name": "polar",
+        "route": "cuda",
+        "source": "thz_image_explorer_tpu_torch/csrc/polar.cu",
+        "replaces": "none: the JAX package's amplitude, angle and unwrap in XLA",
+        "launches": main_polar_launches,
+        "ms": polar_cases["512x512_T1024"]["kernel_ms"],
+        "plain_ms": polar_cases["512x512_T1024"]["plain_ms"],
+        "bound_ms": polar_cases["512x512_T1024"]["bound_ms"],
+        "bound_by": "bytes",
+        "issue_floor_ms": polar_cases["512x512_T1024"]["issue_floor_ms"],
+        "kernels_per_call": 1,
+        "library_ms": None,
+        "shape": [512 * 512, 513],
+        "tilt": {k: polar_cases[k]["kernel_ms"] for k in ("512x512_T1620", "512x512_T1648")},
+        "launches_tilt": tilt_launches["polar"],
+        "launches_shell": shell_launches["polar"],
     }, {
         "name": "rlsep_grouped",
         "route": "cuda",

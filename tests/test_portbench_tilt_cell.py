@@ -4,7 +4,7 @@ The cell's configuration, traffic mix, limits and per-layer metrics are
 found by name like every other cell's; a run of the program on the CPU is
 ``correct`` under the cell's limits, and so is every comparison number
 against the CPU bounds the benchmark's own tests use; the cell's traced
-metrics read a value (the roofline share needs a card's trace); the control
+metrics read a value (the roofline shares need a card's trace); the control
 (the reference in TF32) fails the cell's limits. The configuration at its
 real size is the 512x512 one with tilt compensation on.
 """
@@ -55,7 +55,7 @@ def test_the_cell_is_declared_as_its_files_say():
     assert e2e == {"slider_ms", "slider_p95_ms", "setup_s"}
     layer = {m["name"] for m in spec.metrics(CELL, traced=True)}
     assert layer == {"tilt_stage_ms.tilt", "tilt_host_ms.tilt", "tilt_roofline.tilt",
-                     "device_idle.tilt"}
+                     "device_idle.tilt", "polar_roofline.slider"}
     traffic = spec.traffic("tilt")
     assert traffic["sweep"] == [1.0, 1.1] and traffic["warmup_cycles"] == 4
     assert traffic["sample"] == {"slider": 6}

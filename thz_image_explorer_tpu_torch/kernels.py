@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 #: every kernel source of the package (``csrc/<name>.cu``)
 SOURCES = ("specred", "rlsep", "envelope", "rl2d", "rlsep_cluster", "rl2d_cluster", "bandsum",
-           "tilt")
+           "tilt", "polar")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

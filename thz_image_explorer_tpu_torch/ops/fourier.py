@@ -3,7 +3,9 @@
 Port of ``thz_image_explorer_tpu/ops/fourier.py`` (reference
 ``math_tools.rs:330-571``) on ``torch.fft.rfft``/``irfft`` in f32. The
 JAX package's DFT matmuls and blocked-matmul cumsum were TPU workarounds;
-here the unwrap is ``torch.cumsum`` over the wrapped increments.
+here :func:`unwrap` is ``torch.cumsum`` over the wrapped increments, and the
+FFT stage's amplitudes and unwrapped phases are one kernel on the card
+(``ops/polar.py``, ``csrc/polar.cu``).
 
 Semantics kept exactly:
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from thz_image_explorer_tpu_torch.data import ScanCube, masked_pixel_mean
+from thz_image_explorer_tpu_torch.ops.polar import amplitude_phase
 from thz_image_explorer_tpu_torch.ops.windows import WindowType, window_array
 from thz_image_explorer_tpu_torch.parallel.mesh import Mesh, all_sum
 
@@ -71,20 +74,6 @@ def finish_unwrap(increments: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def unwrap(phase: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """numpy-compatible 1-D phase unwrap with period 2 pi along ``dim``."""
     return finish_unwrap(phase_increments(phase, dim), dim)
-
-
-def _abs_angle(spec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(|z|, arg z)`` of a complex tensor, each element computed the same
-    way wherever it sits in the tensor. On the CPU an elementwise function
-    takes a vector path for most elements of a contiguous run and a scalar
-    one for its tail, and the two can differ in the last bit; the strided
-    real and imaginary views take the scalar path for every element, so a
-    block of a sharded cube gets the whole cube's values bit for bit. A
-    CUDA kernel computes every element alike."""
-    if spec.device.type != "cpu":
-        return torch.abs(spec), torch.angle(spec)
-    re, im = spec.real, spec.imag
-    return torch.hypot(re, im), torch.atan2(im, re)
 
 
 def pairs_rows(n: int) -> bool:
@@ -144,17 +133,15 @@ def forward_fft(cube: ScanCube, window_type: WindowType, window_low,
                 window_high) -> ScanCube:
     """Window + batched real FFT + amplitude / unwrapped phase over all
     pixels (``fft()``, ``math_tools.rs:330-398``). ``window_low``/``_high``
-    (ps) only shape the adapted Blackman window."""
+    (ps) only shape the adapted Blackman window. The amplitudes and phases
+    come from ``ops/polar.amplitude_phase``: on the card one launch of
+    ``csrc/polar.cu``, on the CPU the absolute value, the angle and
+    :func:`unwrap`."""
     w = window_array(cube.time, window_type, window_low, window_high)
     data = cube.data * w
     spec = batch_fft(torch.fft.rfft, data, cube)
-    amplitudes, angles = _abs_angle(spec)
-    return cube.replace(
-        data=data,
-        fft=spec,
-        amplitudes=amplitudes,
-        phases=unwrap(angles),
-    )
+    amplitudes, phases = amplitude_phase(spec)
+    return cube.replace(data=data, fft=spec, amplitudes=amplitudes, phases=phases)
 
 
 def inverse_fft(cube: ScanCube, avg_in_fourier_space: bool = False,
