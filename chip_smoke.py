@@ -411,12 +411,13 @@ def check_specred_plan(n, f, m):
     16 masks) is ops/specred.py's own, at the library's compiled shape,
     which is the module's; the library's layout gives it the same shared
     memory."""
+    from thz_image_explorer_tpu_torch import kernels
     from thz_image_explorer_tpu_torch.ops import specred as sr
 
-    lib = sr._library()
-    assert sr.library_config(lib) == dict(rows=sr.ROWS, stages=sr.STAGES,
-                                          max_cols=sr.MAX_COLS,
-                                          smem_per_block=sr.SMEM_PER_BLOCK)
+    lib = kernels.load("specred")
+    assert sr.library_config() == dict(rows=sr.ROWS, stages=sr.STAGES,
+                                       max_cols=sr.MAX_COLS,
+                                       smem_per_block=sr.SMEM_PER_BLOCK)
     for g in range(0, m, sr.MAX_MASKS):
         mg = min(sr.MAX_MASKS, m - g)
         got = sr.kernel_plan(n, f, mg, False)
@@ -1271,11 +1272,12 @@ def check_envelope_plan(n, t, r):
     """The plan the launches of this shape were given is ops/envelope.py's
     own, at the library's compiled shape, which is the module's; the
     library's layout gives it the same shared memory."""
+    from thz_image_explorer_tpu_torch import kernels
     from thz_image_explorer_tpu_torch.ops import envelope as env
 
-    lib = env._library()
-    assert env.library_config(lib) == dict(warps=env.WARPS, stages=env.STAGES, run=env.RUN,
-                                           max_r=env.MAX_R, smem_per_block=env.SMEM_PER_BLOCK)
+    lib = kernels.load("envelope")
+    assert env.library_config() == dict(warps=env.WARPS, stages=env.STAGES, run=env.RUN,
+                                        max_r=env.MAX_R, smem_per_block=env.SMEM_PER_BLOCK)
     got = env.kernel_plan(n, t, r)
     want = env.plan(t, r)
     assert all(got[k] == v for k, v in want.items()), (n, t, r, got, want)
@@ -4337,7 +4339,7 @@ def main() -> int:
     # ones, the half-iteration kernel on a canvas over the cluster limit and
     # (routed there by half_iteration_route) on the Apply's inputs
     # 5c. the band-sum kernel vs its plain version on the Apply's own inputs
-    layout = bs._library().thz_bandsum_smem
+    layout = kernels.load("bandsum").thz_bandsum_smem
     for n_, m_, b_ in ((40000, 769, 25), (262144, 769, 25), (40000, 1153, 25),
                        (40000, 769, 200), (20000, 1025, 7), (117, 9, 3)):
         p_ = bs.plan(n_, m_, b_)
@@ -4354,7 +4356,7 @@ def main() -> int:
     kr, kc = px.shape[1], py.shape[1]
     s_apply = rlsep.cluster_size_for(*rl_shape[1:], kr, kc)
     assert s_apply is not None and rlsep.cluster_fits(*rl_shape[1:], kr, kc, 8)
-    smem = rlsep._cluster_library().thz_rlsep_cluster_smem
+    smem = kernels.load("rlsep_cluster").thz_rlsep_cluster_smem
     ragged_inputs = ragged_rl_cases(dev, gen)
     for shape in [rl_shape] + [list(v[0].shape) for v in ragged_inputs.values()]:
         for s in (1, 8, 16):
@@ -4362,7 +4364,7 @@ def main() -> int:
                 args_ = (shape[1], shape[2], kr, kc, s)
                 assert smem(*args_) == rlsep.cluster_smem_bytes(*args_), args_
                 for g in (1, 2, 5):
-                    assert rlsep._cluster_library().thz_rlsep_grouped_smem(*args_, g) == \
+                    assert kernels.load("rlsep_cluster").thz_rlsep_grouped_smem(*args_, g) == \
                         rlsep.grouped_smem_bytes(*args_, g), (args_, g)
     rl_plain = rlsep.rl_bands_separable_plain(padded, px, py, n_iter)
     rl_err, rl_rel = check_rl(padded, px, py, n_iter, "apply geometry", "cluster", ref=rl_plain)
@@ -4432,7 +4434,7 @@ def main() -> int:
     psf9 = torch.as_tensor(gauss2d(9, 9, 1.3, -0.8, 1.5, 2.2), device=dev)
     rl2d_route, rl2d_s = rl2d.route_for(*rl2d_shape, 9, 9)
     assert rl2d_route == "cluster", rl2d_route
-    lib2 = rl2d._cluster_library()
+    lib2 = kernels.load("rl2d_cluster")
     ragged2d_inputs = ragged_rl2d_cases(dev, gen)
     for shape in [(*rl2d_shape, 9, 9), (*rl2d_shape, kr, kc)] + [
             (*v[0].shape, *v[1].shape) for v in ragged2d_inputs.values()]:

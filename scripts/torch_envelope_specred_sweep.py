@@ -245,7 +245,7 @@ def library(name, path):
     from thz_image_explorer_tpu_torch.ops import envelope, specred
 
     kept = kernels._loaded.get(name)
-    kernels._loaded[name] = ctypes.CDLL(str(path))
+    kernels._loaded[name] = kernels.declare(ctypes.CDLL(str(path)), name)
     specred._plans.clear()
     envelope._plans.clear()
     try:

@@ -105,7 +105,7 @@ def build_all():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         regs = [x.strip() for x in log.splitlines() if "Used " in x or "spill" in x]
-        libs[name] = (ctypes.CDLL(str(out)), out)
+        libs[name] = (kernels.declare(ctypes.CDLL(str(out)), "polar"), out)
         emit(dict(build=name, ptxas=regs))
     return libs
 
@@ -118,10 +118,6 @@ def runner(lib, spec):
     from thz_image_explorer_tpu_torch.ops import polar
 
     fn = lib.thz_polar_unwrap
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.thz_polar_config.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
     warps, per_sm, _ = polar.config(lib)
     f = spec.shape[-1]
     rows = spec.numel() // f

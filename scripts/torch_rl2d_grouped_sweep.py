@@ -111,18 +111,6 @@ def emit(obj):
         f.write(line + "\n")
 
 
-def _bind(lib, name):
-    if name == "rl2d_cluster":
-        lib.thz_rl2d_cluster.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + \
-            [ctypes.c_void_p]
-        lib.thz_rl2d_cluster.restype = ctypes.c_int
-    else:
-        lib.thz_rlsep_grouped.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
-            [ctypes.c_void_p]
-        lib.thz_rlsep_grouped.restype = ctypes.c_int
-    return lib
-
-
 def build_variants(kernels, with_previous):
     """The -DRL2_ROWS builds, the PARTS copies and, where present, the
     previous group mode: ``{name: (library, ptxas lines)}``; all nvcc
@@ -171,7 +159,7 @@ def build_variants(kernels, with_previous):
                 [ctypes.c_void_p]
             lib.thz_rlsep_cluster.restype = ctypes.c_int
         else:
-            _bind(lib, source)
+            kernels.declare(lib, source)
         libs[name] = (lib, [x.strip() for x in log.splitlines() if "Used" in x or "spill" in x])
     return libs
 
@@ -287,8 +275,8 @@ def main() -> int:
     kr, kc = px.shape[1], py.shape[1]
 
     # the layouts: library == module mirror
-    lib2 = rl2d._cluster_library()
-    libg = rlsep._cluster_library()
+    lib2 = kernels.load("rl2d_cluster")
+    libg = kernels.load("rlsep_cluster")
     for shape in [(h2, w2, 9, 9), (h2, w2, kr, kc), (37, 45, 9, 9), (11, 70, 5, 7),
                   (21, 26, 6, 4), (40, 33, 21, 3), (61, 97, 13, 11), (40, 1100, 9, 1001)]:
         for s in (1, 8, 16):

@@ -85,10 +85,7 @@ def build_variants(kernels):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        lib.thz_rlsep_cluster.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
-            [ctypes.c_void_p]
-        lib.thz_rlsep_cluster.restype = ctypes.c_int
+        lib = kernels.declare(ctypes.CDLL(str(out)), "rlsep_cluster")
         regs = [x.strip() for x in log.splitlines() if "Used" in x or "spill" in x]
         libs[name] = (lib, regs)
     return libs
@@ -162,7 +159,7 @@ def main() -> int:
                          reps=5, inner=1, warm=1)
             print(json.dumps({"shape": name, "cluster_size": s, "ms": ms, "max_rel_err": rel,
                               "ptxas": regs, "card": card}), flush=True)
-    default = rlsep._cluster_library()
+    default = kernels.load("rlsep_cluster")
     run_cluster(default, padded, px, py, n_iter, 16)  # the library's first launch loads it
     for s in (16, 8):
         events = []

@@ -20,7 +20,9 @@ from thz_image_explorer_tpu.io import dotthz as jdotthz
 from thz_image_explorer_tpu.ops.windows import WindowType as JaxWindowType
 from thz_image_explorer_tpu.pipeline import Explorer as JaxExplorer
 from thz_image_explorer_tpu_torch import convert
+from thz_image_explorer_tpu_torch.assets.water_lines import WATER_LINES_THZ
 from thz_image_explorer_tpu_torch.io import dotthz as tdotthz
+from thz_image_explorer_tpu_torch.ops import bandpass as bp
 from thz_image_explorer_tpu_torch.ops.windows import WindowType as PortWindowType
 from thz_image_explorer_tpu_torch.pipeline import Explorer, PlotData
 from thz_image_explorer_tpu_torch.pipeline import publish as tpublish
@@ -299,6 +301,78 @@ def test_click_reuses_the_cached_reductions(scan_path, monkeypatch):
     assert len(calls) == n + 1
     ex.set_fft_window_low(1.2)  # a chain run
     assert len(calls) == n + 2
+
+
+def _fd_on(scan_path):
+    """An opened pipeline with the FD band-pass and the notch on, each
+    ``fd_weight_vector`` wrapped in a call counter, before their run."""
+    p = _opened(scan_path).pipeline
+    calls = {}
+    for uuid, params in (("frequency_band_pass", dict(low=0.3, high=2.0)),
+                         ("water_vapor_notch", dict(notch_width=0.05, depth=0.8))):
+        stage = p.filters[uuid]
+        for key, value in params.items():
+            setattr(stage, key, value)
+        stage.active = True
+        calls[uuid] = 0
+
+        def counted(freq, _real=stage.fd_weight_vector, _uuid=uuid):
+            calls[_uuid] += 1
+            return _real(freq)
+
+        stage.fd_weight_vector = counted
+    return p, calls
+
+
+def test_each_fd_weight_is_built_once_a_run(scan_path, monkeypatch):
+    """One run calls each active FD stage's ``fd_weight_vector`` once, and
+    ``ops/bandpass`` builds each weight once (not again for an ``apply``)."""
+    p, calls = _fd_on(scan_path)
+    for name in ("fd_bandpass_weights", "water_notch_weights"):
+        calls[name] = 0
+
+        def counted(*a, _real=getattr(bp, name), _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(bp, name, counted)
+    p.run_from(p.index_of("frequency_band_pass"))
+    assert set(calls.values()) == {1}, calls
+    p.run_from(1)
+    assert set(calls.values()) == {2}, calls
+
+
+def test_fd_slots_and_published_weight_are_the_weights_products(scan_path):
+    """Bit for bit: the publish's weight is the product of freshly built
+    weights, and each FD slot is its input's spectrum and amplitudes times
+    its weight, as ``ops/bandpass``'s one-line products give them."""
+    p, _ = _fd_on(scan_path)
+    p.run_from(1)
+    i, j = p.index_of("frequency_band_pass"), p.index_of("water_vapor_notch")
+    fbp, notch = p.filters["frequency_band_pass"], p.filters["water_vapor_notch"]
+    freq = p.slots[p.fft_index].freq
+    w_fbp, w_notch = fbp.fd_weight_vector(freq), notch.fd_weight_vector(freq)
+    assert not torch.equal(w_fbp, torch.ones_like(w_fbp))
+    assert not torch.equal(w_notch, torch.ones_like(w_notch))
+    spec, w = p.spectral_source()
+    assert spec is p.slots[p.fft_index]
+    assert torch.equal(w, torch.ones_like(w_fbp) * w_fbp * w_notch)
+    for k, wk in ((i, w_fbp), (j, w_notch)):
+        inp, out = p.slots[k - 1], p.slots[k]
+        assert torch.equal(out.fft, inp.fft * wk) and torch.equal(out.amplitudes,
+                                                                  inp.amplitudes * wk)
+        assert out.phases is inp.phases and out.data is inp.data
+    inp = p.slots[i - 1]
+    want = bp.fd_bandpass(inp.fft, inp.amplitudes, inp.freq, fbp.low, fbp.high,
+                          fbp.window_width)
+    assert all(torch.equal(a, b) for a, b in zip((p.slots[i].fft, p.slots[i].amplitudes),
+                                                 want))
+    inp = p.slots[j - 1]
+    lines = torch.as_tensor(np.asarray(WATER_LINES_THZ, np.float32))
+    want = bp.water_notch(inp.fft, inp.amplitudes, inp.freq, lines, notch.notch_width,
+                          notch.depth)
+    assert all(torch.equal(a, b) for a, b in zip((p.slots[j].fft, p.slots[j].amplitudes),
+                                                 want))
 
 
 class _OpaqueFD(FilterStage):

@@ -8,8 +8,15 @@
   horizontal edges, ``scaling`` 0, 1, 3 and 7, square and non-square grids;
 * the library is built from the checkout without nvcc, and a failed build
   raises with the compiler's output instead of falling back to Python;
+* ``kernels.SIGNATURES`` against the sources: one entry for every
+  ``extern "C"`` function of ``csrc/*.cu`` and every non-static function
+  of ``csrc/*.c``, none else, each with its source's arity, return type
+  and scalar parameter types; ``kernels.load`` declares them;
 * ``masked_mean_trace`` against the JAX package's.
 """
+
+import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +110,69 @@ def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
         roi.polygon_mask([(1, 1), (20, 2), (9, 15)], (24, 24))
     assert "thz_no_such_header.h" in str(err.value)
     assert not list(tmp_path.glob("roi-*.so"))
+
+
+#: a C scalar type -> its ctypes type (``void`` only as a return type)
+_C_SCALARS = {"void": None, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+              "float": ctypes.c_float, "size_t": ctypes.c_size_t, "uint64_t": ctypes.c_uint64}
+_POINTERS = (ctypes.c_void_p, ctypes.c_char_p)
+
+
+def _entry_points(name):
+    """``{symbol: (return type, [parameter types])}`` of ``csrc/<name>``'s
+    exported functions, as C text: a ``.cu``'s ``extern "C"`` definitions, a
+    ``.c``'s non-static top-level ones."""
+    if name in kernels.C_SOURCES:
+        text = (kernels.CSRC / f"{name}.c").read_text()
+        found = re.findall(r"^(?!static\b)([A-Za-z_][\w ]*?[\w*])\s*\b(\w+)\(([^)]*)\)\s*\{",
+                           text, re.M)
+    else:
+        text = (kernels.CSRC / f"{name}.cu").read_text()
+        found = re.findall(r'extern "C"\s+([\w ]*?[\w*])\s*\b(\w+)\(([^)]*)\)', text)
+    out = {}
+    for ret, symbol, params in found:
+        types = [re.sub(r"\s*\b\w+$", "", " ".join(q.split())) for q in params.split(",")]
+        assert symbol not in out, f"{name}: {symbol} defined twice"
+        out[symbol] = (" ".join(ret.split()), types)
+    return out
+
+
+@pytest.mark.parametrize("name", kernels.SOURCES + kernels.C_SOURCES)
+def test_signature_table_matches_the_source(name):
+    """The table names each exported function of the source once, and
+    nothing else, with its arity, return type and scalar types."""
+    found = _entry_points(name)
+    assert found, name
+    table = kernels.SIGNATURES[name]
+    assert set(table) == set(found), name
+    for symbol, (ret, params) in found.items():
+        restype, argtypes = table[symbol]
+        assert restype is _C_SCALARS[ret], (symbol, ret)
+        assert len(argtypes) == len(params), (symbol, params)
+        for c_type, got in zip(params, argtypes):
+            if "*" in c_type:
+                assert got in _POINTERS or issubclass(got, ctypes._Pointer), (symbol, c_type)
+            else:
+                assert got is _C_SCALARS[c_type.removeprefix("const ")], (symbol, c_type)
+
+
+def test_signature_table_names_every_library():
+    assert set(kernels.SIGNATURES) == set(kernels.SOURCES + kernels.C_SOURCES)
+    symbols = [s for table in kernels.SIGNATURES.values() for s in table]
+    assert len(symbols) == len(set(symbols))
+
+
+def test_load_declares_the_table_once(monkeypatch, tmp_path):
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "_loaded", {})
+    lib = kernels.load("roi")
+    restype, argtypes = kernels.SIGNATURES["roi"]["thz_roi_polygon_mask"]
+    fn = lib.thz_roi_polygon_mask
+    assert fn.restype is restype and list(fn.argtypes) == argtypes
+    assert kernels.load("roi") is lib and lib.thz_roi_polygon_mask is fn
+    with pytest.raises(RuntimeError, match="rl2d kernel launch failed: CUDA error 700"):
+        kernels.check_launch(700, "rl2d")
+    kernels.check_launch(0, "rl2d")
 
 
 @pytest.mark.parametrize("empty", [False, True], ids=["mask", "empty_mask"])

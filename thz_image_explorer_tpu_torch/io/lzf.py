@@ -22,14 +22,6 @@ _MAX_OFFSET = 8192
 _MAX_MATCH = 264
 
 
-def _library():
-    lib = kernels.load("lzf")
-    for fn in (lib.thz_lzf_decompress, lib.thz_lzf_compress):
-        fn.restype = ctypes.c_longlong
-        fn.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_size_t]
-    return lib
-
-
 def decompress(data: bytes, size: int) -> bytearray:
     """The ``size`` bytes an LZF stream decodes to (not copied into a
     ``bytes``); ``ValueError`` if it is malformed or decodes to any other
@@ -37,7 +29,7 @@ def decompress(data: bytes, size: int) -> bytearray:
     data = bytes(data)
     out = bytearray(size)
     buf = (ctypes.c_char * size).from_buffer(out) if size else None
-    n = _library().thz_lzf_decompress(data, len(data), buf, size)
+    n = kernels.load("lzf").thz_lzf_decompress(data, len(data), buf, size)
     if n == -1:
         raise ValueError("malformed LZF stream")
     if n == -2 or n != size:
@@ -52,7 +44,7 @@ def compress(data: bytes) -> bytes | None:
     data = bytes(data)
     out = bytearray(len(data))
     buf = (ctypes.c_char * len(data)).from_buffer(out) if data else None
-    n = _library().thz_lzf_compress(data, len(data), buf, len(data))
+    n = kernels.load("lzf").thz_lzf_compress(data, len(data), buf, len(data))
     if n < 0:
         raise MemoryError("the LZF compressor could not allocate its table")
     return bytes(out[:n]) if n else None

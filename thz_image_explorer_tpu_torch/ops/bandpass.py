@@ -5,8 +5,9 @@ Port of ``thz_image_explorer_tpu/ops/bandpass.py``. The reference slices,
 windows and zero-pads back (``band_pass_td_before_fft.rs:124-182``,
 ``band_pass_fd.rs:122-220``); a fixed-shape masked multiply is exactly
 equivalent. The index selection stays on the device (no host sync per
-slider step). Every ``*_weights`` vector is the stage's whole effect: the
-publish factors the FD weights out of its pixel sums
+slider step). Every ``*_weights`` vector is the stage's whole effect:
+:func:`weigh_spectrum` applies an FD weight to a cube, and the publish
+factors the FD weights out of its pixel sums
 (``ops/specred.lean_spectral_outputs``).
 """
 
@@ -81,6 +82,14 @@ def fd_bandpass_weights(freq: torch.Tensor, low, high, window_width) -> torch.Te
     f_end = freq[torch.clamp(upper - 1, min=0)]
     win = _adapted_blackman_slice_window(freq, freq[lower], f_end, width)
     return torch.where(inside, win, 0.0)
+
+
+def weigh_spectrum(cube, w: torch.Tensor):
+    """``cube`` with its complex spectrum and amplitudes times the
+    per-frequency weight ``w``; the phases are left alone (the reference's
+    FD filters leave them). The one way an FD stage's weight reaches a
+    cube: the FD stages' ``apply`` and the executor both call it."""
+    return cube.replace(fft=cube.fft * w, amplitudes=cube.amplitudes * w)
 
 
 def fd_bandpass(fft, amplitudes, freq, low, high, window_width):

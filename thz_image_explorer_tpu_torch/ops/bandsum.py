@@ -147,24 +147,10 @@ def weighted_spectrum(spec, u, energy, taps, offset, cols) -> torch.Tensor:
 weighted_spectrum.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("bandsum")
-    fn = lib.thz_bandsum
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.thz_bandsum_smem.argtypes = [ctypes.c_int] * 2
-        lib.thz_bandsum_smem.restype = ctypes.c_longlong
-        lib.thz_bandsum_config.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        lib.thz_bandsum_config.restype = None
-    return lib
-
-
-def library_config(lib=None) -> dict:
+def library_config() -> dict:
     """The built kernel's compiled shape (``thz_bandsum_config``)."""
     out = (ctypes.c_longlong * 3)()
-    (lib or _library()).thz_bandsum_config(out)
+    kernels.load("bandsum").thz_bandsum_config(out)
     return dict(warps=out[0], block_rows=out[1], smem_per_block=out[2])
 
 
@@ -172,15 +158,13 @@ def _run_kernel(spec, u, energy, taps, offset, cols) -> torch.Tensor:
     n, m = spec.shape
     if n == 0:
         return spec
-    lib = _library()
     bands = u.shape[0]
     p = plan(n, m, bands)
     args = (ctypes.c_longlong * 4)(p["ci"], p["bc"], p["blocks"], p["smem"])
     stream = torch.cuda.current_stream(spec.device).cuda_stream
-    err = lib.thz_bandsum(spec.data_ptr(), u.data_ptr(), energy.data_ptr(), taps.data_ptr(),
-                          n, m, bands, cols, u.shape[1], u.shape[2], int(offset[0]),
-                          int(offset[1]), args, stream)
-    if err != 0:
-        raise RuntimeError(f"band-sum kernel launch failed: CUDA error {err}")
+    err = kernels.load("bandsum").thz_bandsum(
+        spec.data_ptr(), u.data_ptr(), energy.data_ptr(), taps.data_ptr(), n, m, bands, cols,
+        u.shape[1], u.shape[2], int(offset[0]), int(offset[1]), args, stream)
+    kernels.check_launch(err, "band-sum")
     weighted_spectrum.launches += 1
     return spec

@@ -154,29 +154,12 @@ def envelope(flat: torch.Tensor, taps, contrast: float, thr: float) -> torch.Ten
 envelope.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("envelope")
-    fn = lib.thz_envelope
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.thz_envelope_smem.argtypes = [ctypes.c_int] * 5
-        lib.thz_envelope_smem.restype = ctypes.c_longlong
-        lib.thz_envelope_config.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        lib.thz_envelope_config.restype = None
-        lib.thz_envelope_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-        lib.thz_envelope_blocks_per_sm.restype = ctypes.c_int
-    return lib
-
-
-def library_config(lib=None) -> dict:
+def library_config() -> dict:
     """The built kernel's compiled shape (``thz_envelope_config``): its
     preferred warps and input buffers, its run, its largest radius with
     taps in registers, its block limit."""
     out = (ctypes.c_longlong * 5)()
-    (lib or _library()).thz_envelope_config(out)
+    kernels.load("envelope").thz_envelope_config(out)
     return dict(warps=out[0], stages=out[1], run=out[2], max_r=out[3], smem_per_block=out[4])
 
 
@@ -194,12 +177,11 @@ def kernel_plan(n: int, t: int, r: int, device=None) -> dict:
     key = (n, t, r, index)
     got = _plans.get(key)
     if got is None:
-        lib = _library()
-        cfg = library_config(lib)
+        cfg = library_config()
         got = plan(t, r, cfg["warps"], cfg["stages"])
         threads = got["warps"] * 32
         with torch.cuda.device(index):
-            per_sm = lib.thz_envelope_blocks_per_sm(r, threads, got["smem"])
+            per_sm = kernels.load("envelope").thz_envelope_blocks_per_sm(r, threads, got["smem"])
         if per_sm < 1:
             raise RuntimeError(f"envelope: no block of shape {got} fits an SM (CUDA error "
                                f"{-per_sm})")
@@ -211,7 +193,6 @@ def kernel_plan(n: int, t: int, r: int, device=None) -> dict:
 
 
 def _run_kernel(flat, taps, contrast, thr) -> torch.Tensor:
-    lib = _library()
     n, t = flat.shape
     r = taps.shape[0] // 2
     out = torch.empty_like(flat)
@@ -222,9 +203,8 @@ def _run_kernel(flat, taps, contrast, thr) -> torch.Tensor:
     args = (ctypes.c_longlong * 6)(p["warps"], p["stages"], p["outs"], int(bulk), p["blocks"],
                                    p["smem"])
     stream = torch.cuda.current_stream(flat.device).cuda_stream
-    err = lib.thz_envelope(flat.data_ptr(), out.data_ptr(), taps.data_ptr(), n, t, r,
-                           float(contrast), float(thr), args, stream)
-    if err != 0:
-        raise RuntimeError(f"envelope kernel launch failed: CUDA error {err}")
+    err = kernels.load("envelope").thz_envelope(flat.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                                                n, t, r, float(contrast), float(thr), args, stream)
+    kernels.check_launch(err, "envelope")
     envelope.launches += 1
     return out

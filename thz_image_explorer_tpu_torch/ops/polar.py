@@ -98,18 +98,6 @@ def amplitude_phase(spec: torch.Tensor, increments: Optional[torch.Tensor] = Non
 amplitude_phase.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("polar")
-    fn = lib.thz_polar_unwrap
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                                ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.thz_polar_config.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        lib.thz_polar_config.restype = None
-    return lib
-
-
 def config(lib: ctypes.CDLL) -> tuple[int, int, int]:
     """The compiled shape of ``csrc/polar.cu``: (warps a block, resident
     blocks an SM, chunks of 32 bins loaded ahead)."""
@@ -126,7 +114,7 @@ def _run_kernel(spec: torch.Tensor, increments: Optional[torch.Tensor]
         return amplitudes, phases
     f = spec.shape[-1]
     rows = spec.numel() // f
-    lib = _library()
+    lib = kernels.load("polar")
     warps, per_sm, _ = config(lib)
     # the persistent grid: a warp a row, up to the blocks the card holds at once
     sms = torch.cuda.get_device_properties(spec.device).multi_processor_count
@@ -135,7 +123,6 @@ def _run_kernel(spec: torch.Tensor, increments: Optional[torch.Tensor]
     err = lib.thz_polar_unwrap(spec.data_ptr(), amplitudes.data_ptr(), phases.data_ptr(),
                                None if increments is None else increments.data_ptr(), rows, f,
                                blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"polar kernel launch failed: CUDA error {err}")
+    kernels.check_launch(err, "polar")
     amplitude_phase.launches += 1
     return amplitudes, phases

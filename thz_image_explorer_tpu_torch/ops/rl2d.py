@@ -35,7 +35,6 @@ plain version.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
@@ -175,30 +174,8 @@ richardson_lucy_direct.launches = 0
 richardson_lucy_direct.launches_tiled = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("rl2d")
-    fn = lib.thz_rl2d
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _cluster_library() -> ctypes.CDLL:
-    lib = kernels.load("rl2d_cluster")
-    fn = lib.thz_rl2d_cluster
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.thz_rl2d_cluster_smem.argtypes = [ctypes.c_int] * 5
-        lib.thz_rl2d_cluster_smem.restype = ctypes.c_longlong
-        lib.thz_rl2d_cluster_tile.argtypes = [ctypes.c_int]
-        lib.thz_rl2d_cluster_tile.restype = ctypes.c_int
-    return lib
-
-
 def _run_cluster(padded, psf, n_iter: int, s: int) -> torch.Tensor:
-    lib = _cluster_library()
+    lib = kernels.load("rl2d_cluster")
     h2, w2 = padded.shape
     kr, kc = psf.shape
     u = padded.clone()
@@ -206,14 +183,12 @@ def _run_cluster(padded, psf, n_iter: int, s: int) -> torch.Tensor:
     for i0, i1, _ in rlsep.launch_schedule(np.array([n_iter])):
         err = lib.thz_rl2d_cluster(u.data_ptr(), padded.data_ptr(), psf.data_ptr(), i1 - i0,
                                    h2, w2, kr, kc, s, stream)
-        if err != 0:
-            raise RuntimeError(f"rl2d_cluster kernel launch failed: CUDA error {err}")
+        kernels.check_launch(err, "rl2d_cluster")
         richardson_lucy_direct.launches += 1
     return u
 
 
 def _run_tiled(padded, psf, n_iter: int) -> torch.Tensor:
-    lib = _library()
     h2, w2 = padded.shape
     kr, kc = psf.shape
     u = padded.clone()
@@ -221,9 +196,8 @@ def _run_tiled(padded, psf, n_iter: int) -> torch.Tensor:
         return u
     rel = torch.empty_like(padded)
     stream = torch.cuda.current_stream(padded.device).cuda_stream
-    err = lib.thz_rl2d(u.data_ptr(), rel.data_ptr(), padded.data_ptr(), psf.data_ptr(),
-                       n_iter, h2, w2, kr, kc, stream)
-    if err != 0:
-        raise RuntimeError(f"rl2d kernel launch failed: CUDA error {err}")
+    err = kernels.load("rl2d").thz_rl2d(u.data_ptr(), rel.data_ptr(), padded.data_ptr(),
+                                        psf.data_ptr(), n_iter, h2, w2, kr, kc, stream)
+    kernels.check_launch(err, "rl2d")
     richardson_lucy_direct.launches_tiled += 2 * n_iter
     return u

@@ -51,7 +51,6 @@ is where the deconvolution reports progress and checks cancellation.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Optional
 
 import numpy as np
@@ -290,38 +289,13 @@ def rl_bands_separable_grouped(padded: torch.Tensor, px: torch.Tensor, py: torch
 rl_bands_separable_grouped.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("rlsep")
-    fn = lib.thz_rlsep
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _cluster_library() -> ctypes.CDLL:
-    lib = kernels.load("rlsep_cluster")
-    fn = lib.thz_rlsep_cluster
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.thz_rlsep_grouped.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
-            [ctypes.c_void_p]
-        lib.thz_rlsep_grouped.restype = ctypes.c_int
-        lib.thz_rlsep_cluster_smem.argtypes = [ctypes.c_int] * 5
-        lib.thz_rlsep_cluster_smem.restype = ctypes.c_longlong
-        lib.thz_rlsep_grouped_smem.argtypes = [ctypes.c_int] * 6
-        lib.thz_rlsep_grouped_smem.restype = ctypes.c_longlong
-    return lib
-
-
 def _run_cluster(padded, px, py, n_iter, between: Between, s: int,
                  group: Optional[int] = None):
     """The cluster route's launches (``thz_rlsep_cluster``, counted by
     ``rl_bands_separable.launches``) or, with ``group``, the grouped mode's
     (``thz_rlsep_grouped``, ``group`` bands a cluster, counted by
     ``rl_bands_separable_grouped.launches``)."""
-    lib = _cluster_library()
+    lib = kernels.load("rlsep_cluster")
     b, h2, w2 = padded.shape
     # bands by descending trip count: a launch from i0 runs the first nb
     order = torch.as_tensor(np.argsort(-n_iter, kind="stable").astype(np.int32),
@@ -344,14 +318,13 @@ def _run_cluster(padded, px, py, n_iter, between: Between, s: int,
         else:
             err = lib.thz_rlsep_grouped(*args, group, stream)
             counter = rl_bands_separable_grouped
-        if err != 0:
-            raise RuntimeError(f"rlsep_cluster kernel launch failed: CUDA error {err}")
+        kernels.check_launch(err, "rlsep_cluster")
         counter.launches += 1
     return u
 
 
 def _run_tiled(padded, px, py, n_iter, between: Between):
-    lib = _library()
+    lib = kernels.load("rlsep")
     b, h2, w2 = padded.shape
     max_iter = int(n_iter.max(initial=0))
     # bands by descending trip count: at iteration ``it`` the first
@@ -375,7 +348,6 @@ def _run_tiled(padded, px, py, n_iter, between: Between):
             py.data_ptr(), order_dev.data_ptr(), counts.ctypes.data, i0, i1,
             b, h2, w2, px.shape[1], py.shape[1], stream,
         )
-        if err != 0:
-            raise RuntimeError(f"rlsep kernel launch failed: CUDA error {err}")
+        kernels.check_launch(err, "rlsep")
         rl_bands_separable.launches_tiled += 2 * (i1 - i0)
     return u

@@ -21,17 +21,6 @@ from thz_image_explorer_tpu_torch import kernels
 _M64 = 1 << 64
 
 
-def _rasterizer():
-    """``thz_roi_polygon_mask`` of ``csrc/roi.c`` (built at first use; a
-    failed build raises with the compiler's output)."""
-    fn = kernels.load("roi").thz_roi_polygon_mask
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
-                   ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_uint64,
-                   ctypes.POINTER(ctypes.c_uint8)]
-    return fn
-
-
 def _point_in_polygon_py(x: int, y: int, poly: list[tuple[int, int]]) -> bool:
     """Ray-cast point-in-polygon with u64 wrap-around semantics
     (``math_tools.rs:574-591``)."""
@@ -69,9 +58,9 @@ def polygon_mask(polygon: list[tuple[int, int]], shape: tuple[int, int],
         px = np.array([int(x) % _M64 for x, _ in polygon], np.uint64)
         py = np.array([int(y) % _M64 for _, y in polygon], np.uint64)
         u64 = ctypes.POINTER(ctypes.c_uint64)
-        count = _rasterizer()(px.ctypes.data_as(u64), py.ctypes.data_as(u64), n, shape0, shape1,
-                              int(scaling) % _M64,
-                              mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        count = kernels.load("roi").thz_roi_polygon_mask(
+            px.ctypes.data_as(u64), py.ctypes.data_as(u64), n, shape0, shape1,
+            int(scaling) % _M64, mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
         if count < 0:
             raise MemoryError("the ROI rasterizer could not allocate its vertex arrays")
     return mask.view(bool)

@@ -168,27 +168,11 @@ def plan(n: int, f: int, m: int, blocks_possible: int, **preferred) -> dict:
 _PLAN_ARGS = ("chunks", "cw", "rows", "stages", "wide", "ranges", "grid", "threads", "smem")
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("specred")
-    fn = lib.thz_specred
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.thz_specred_smem.argtypes = [ctypes.c_int] * 6
-        lib.thz_specred_smem.restype = ctypes.c_longlong
-        lib.thz_specred_config.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
-        lib.thz_specred_config.restype = None
-        lib.thz_specred_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [ctypes.c_longlong]
-        lib.thz_specred_blocks_per_sm.restype = ctypes.c_int
-    return lib
-
-
-def library_config(lib=None) -> dict:
+def library_config() -> dict:
     """The built kernel's compiled shape (``thz_specred_config``): its
     preferred rows and stages, its columns of one block, its block limit."""
     out = (ctypes.c_longlong * 4)()
-    (lib or _library()).thz_specred_config(out)
+    kernels.load("specred").thz_specred_config(out)
     return dict(rows=out[0], stages=out[1], max_cols=out[2], smem_per_block=out[3])
 
 
@@ -206,12 +190,11 @@ def kernel_plan(n: int, f: int, m: int, with_complex: bool, device=None) -> dict
     key = (n, f, m, bool(with_complex), index)
     got = _plans.get(key)
     if got is None:
-        lib = _library()
-        cfg = library_config(lib)
+        cfg = library_config()
         s = shape(f, m, cfg["rows"], cfg["stages"], cfg["max_cols"])
         with torch.cuda.device(index):
-            per_sm = lib.thz_specred_blocks_per_sm(m, int(bool(with_complex)), s["threads"],
-                                                   s["smem"])
+            per_sm = kernels.load("specred").thz_specred_blocks_per_sm(
+                m, int(bool(with_complex)), s["threads"], s["smem"])
         if per_sm < 1:
             raise RuntimeError(f"specred: no block of shape {s} fits an SM (CUDA error "
                                f"{-per_sm})")
@@ -237,7 +220,6 @@ def _barrier_counters(device: torch.device, stream: int) -> torch.Tensor:
 
 def _launch(spec: torch.Tensor, masks: torch.Tensor, with_complex: bool) -> torch.Tensor:
     """One kernel launch for at most 16 masks -> (n_out, M, F)."""
-    lib = _library()
     n, f = spec.shape
     m = masks.shape[0]
     n_out = 4 if with_complex else 2
@@ -249,13 +231,12 @@ def _launch(spec: torch.Tensor, masks: torch.Tensor, with_complex: bool) -> torc
     with torch.cuda.device(spec.device):
         stream = torch.cuda.current_stream(spec.device).cuda_stream
         counters = _barrier_counters(spec.device, stream)
-        err = lib.thz_specred(
+        err = kernels.load("specred").thz_specred(
             torch.view_as_real(spec).data_ptr(), masks.data_ptr(), partial.data_ptr(),
             counters.data_ptr(), out.data_ptr(), n, f, m, int(bool(with_complex)), p["args"],
             int(bulk), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"specred kernel launch failed: CUDA error {err}")
+    kernels.check_launch(err, "specred")
     spectral_reduction_sums.launches += 1
     return out
 

@@ -40,7 +40,6 @@ and the new axis (host work), ``tilt.insert`` around the insertion
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
@@ -236,16 +235,6 @@ def tilt_insert(data: torch.Tensor, time: torch.Tensor, num_steps: int, valid_wh
 tilt_insert.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = kernels.load("tilt")
-    fn = lib.thz_tilt_insert
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 9 + [ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
-
-
 #: csrc/tilt.cu's warps a block (a pixel each at a time) and resident blocks
 #: an SM (its kWarps, kBlocksPerSm; the launch refuses more blocks than
 #: pixels need)
@@ -260,20 +249,18 @@ def _run_kernel(data, time, num_steps, valid_wh, dx, dy, tilt_x_deg, tilt_y_deg,
     n = width * height
     if n == 0:
         return out
-    lib = _library()
     stream = torch.cuda.current_stream(data.device).cuda_stream
     # the persistent grid: a warp a pixel, up to the blocks the card holds at once
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
     blocks = min(-(-n // WARPS), BLOCKS_PER_SM * sms)
     f32 = [float(_F32(v)) for v in (dx, dy, tilt_x_deg, tilt_y_deg, _DEG, _INV_C, _INV_DT,
                                     *WINDOW_PS)]
-    err = lib.thz_tilt_insert(data.data_ptr(), time.data_ptr(), out.data_ptr(),
-                              None if shifts is None else shifts.data_ptr(), n, height,
-                              n_time, n_time + 2 * num_steps, int(origin[0]), int(origin[1]),
-                              int(valid_wh[0]), int(valid_wh[1]), int(num_steps), *f32,
-                              blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"tilt kernel launch failed: CUDA error {err}")
+    err = kernels.load("tilt").thz_tilt_insert(
+        data.data_ptr(), time.data_ptr(), out.data_ptr(),
+        None if shifts is None else shifts.data_ptr(), n, height, n_time,
+        n_time + 2 * num_steps, int(origin[0]), int(origin[1]), int(valid_wh[0]),
+        int(valid_wh[1]), int(num_steps), *f32, blocks, stream)
+    kernels.check_launch(err, "tilt")
     tilt_insert.launches += 1
     return out
 

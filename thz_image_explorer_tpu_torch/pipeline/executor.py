@@ -51,6 +51,7 @@ import torch
 
 from thz_image_explorer_tpu_torch import kernels
 from thz_image_explorer_tpu_torch.data import ScanCube, frequency_axis, resolve_device
+from thz_image_explorer_tpu_torch.ops.bandpass import weigh_spectrum
 from thz_image_explorer_tpu_torch.ops.fourier import forward_fft, inverse_fft
 from thz_image_explorer_tpu_torch.ops.intensity import intensity_image, upscale_image
 from thz_image_explorer_tpu_torch.ops.scaling import scale_cube
@@ -104,8 +105,10 @@ class Pipeline:
         #: host copy of each slot's time axis (parameter clamping reads it
         #: without a device->host copy per update)
         self._host_time: dict[int, np.ndarray] = {}
-        #: chain index -> the FD weight vector that stage applied in its
-        #: last run (None: an active FD stage without ``fd_weight_vector``)
+        #: chain index -> the weight an active FD stage's
+        #: ``fd_weight_vector`` gave in its last run, the one tensor
+        #: ``_run_stage`` applied and ``spectral_source`` factors out (None:
+        #: the stage has no ``fd_weight_vector``; ``pipeline/stage.py``)
         self._fd_weights: dict[int, Optional[torch.Tensor]] = {}
         self._timings_ms: dict[str, float] = {}
         #: (stage, timer) of the last run's stages, read by ``timings_ms``
@@ -223,20 +226,20 @@ class Pipeline:
         if name == "ifft":
             return inverse_fft(inp, cfg.avg_in_fourier_space, self.mesh)
         stage = self.filters[name]
-        in_fd = self.fft_index < i < self.ifft_index
         if not stage.active or (stage.is_deconvolution and not run_deconvolution):
             self._fd_weights.pop(i, None)
             return inp  # identity pass-through: the slot shares the tensors
         stage.clamp_params(inp, self._host_time[i - 1])
-        out = stage.apply(inp, StageContext(
+        if self.fft_index < i < self.ifft_index:
+            weight = getattr(stage, "fd_weight_vector", None)
+            w = self._fd_weights[i] = None if weight is None else weight(inp.freq)
+            if w is not None:
+                return weigh_spectrum(inp, w)
+        return stage.apply(inp, StageContext(
             progress=self._progress_setter(name), cancelled=self.cancelled,
             psf=self.psf, valid_wh=self.valid_for(inp), time=self._host_time[i - 1],
             mesh=self.mesh,
         ))
-        if in_fd:
-            weight = getattr(stage, "fd_weight_vector", None)
-            self._fd_weights[i] = None if weight is None else weight(inp.freq)
-        return out
 
     def _progress_setter(self, uuid: str) -> Callable[[Optional[float]], None]:
         def setter(value: Optional[float]):
@@ -293,12 +296,11 @@ class Pipeline:
     def spectral_source(self) -> tuple[ScanCube, torch.Tensor]:
         """What the publish's one-pass reduction reads: the FFT stage's
         slot (raw spectrum: post-window, before the FD stages) and the
-        product of the weight vectors the active FD stages applied.
+        product of the weights the active FD stages applied.
 
         FD stages weight amplitudes but leave phases alone, so the
-        published phases must come from the raw spectrum; that only holds
-        when every active FD stage is a per-frequency multiply. A stage
-        without ``fd_weight_vector`` breaks the contract and is refused."""
+        published phases come from the raw spectrum. An active FD stage
+        without ``fd_weight_vector`` is refused (``pipeline/stage.py``)."""
         spec = self.slots[self.fft_index]
         w = torch.ones(spec.n_freq, dtype=torch.float32, device=spec.device)
         for i in range(self.fft_index + 1, self.ifft_index):

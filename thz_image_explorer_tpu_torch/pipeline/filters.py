@@ -87,9 +87,7 @@ class _TimeBandPass(FilterStage):
             self.high = min(self.high, float(time[-1]))
 
     def apply(self, cube: ScanCube, context: StageContext) -> ScanCube:
-        return cube.replace(data=bp.td_bandpass(
-            cube.data, cube.time, self.low, self.high, self.window_width
-        ))
+        return cube.replace(data=cube.data * self.td_weight_vector(cube.time))
 
     def td_weight_vector(self, time: torch.Tensor) -> torch.Tensor:
         """The stage's whole effect as a per-time-sample weight."""
@@ -139,11 +137,7 @@ class FrequencyBandPass(FilterStage):
         )
 
     def apply(self, cube: ScanCube, context: StageContext) -> ScanCube:
-        fft, amplitudes = bp.fd_bandpass(
-            cube.fft, cube.amplitudes, cube.freq, self.low, self.high,
-            self.window_width,
-        )
-        return cube.replace(fft=fft, amplitudes=amplitudes)
+        return bp.weigh_spectrum(cube, self.fd_weight_vector(cube.freq))
 
     def fd_weight_vector(self, freq: torch.Tensor) -> torch.Tensor:
         """The stage's whole effect as a per-frequency weight."""
@@ -172,11 +166,7 @@ class WaterVaporNotch(FilterStage):
         )
 
     def apply(self, cube: ScanCube, context: StageContext) -> ScanCube:
-        fft, amplitudes = bp.water_notch(
-            cube.fft, cube.amplitudes, cube.freq, self._lines_on(cube.freq),
-            self.notch_width, self.depth,
-        )
-        return cube.replace(fft=fft, amplitudes=amplitudes)
+        return bp.weigh_spectrum(cube, self.fd_weight_vector(cube.freq))
 
     def fd_weight_vector(self, freq: torch.Tensor) -> torch.Tensor:
         """The stage's whole effect as a per-frequency weight."""

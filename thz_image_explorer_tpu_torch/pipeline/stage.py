@@ -44,10 +44,17 @@ class FilterStage:
     Subclasses define ``config()`` and ``apply(cube, context) -> cube``
     (which returns a new cube and leaves its input as it is), plus
     parameter attributes. ``active`` is the per-filter on/off toggle; an
-    inactive stage is identity (``data_thread.rs:1185-1188``). A FREQUENCY
-    stage must also define ``fd_weight_vector(freq)``, its whole effect as
-    a per-frequency weight: the publish factors it out of the raw-spectrum
-    sums (``pipeline/publish.py``).
+    inactive stage is identity (``data_thread.rs:1185-1188``).
+
+    A FREQUENCY stage is its ``fd_weight_vector(freq)``: its whole effect
+    is that per-frequency weight on the complex spectrum and the
+    amplitudes, the phases left alone. The executor builds it once a run,
+    applies it (``ops/bandpass.weigh_spectrum``) in place of ``apply``,
+    and the publish factors the same tensor out of its raw-spectrum sums.
+    So an ``apply`` written beside it is not called by the executor; the
+    built-in FD stages' ``apply`` is that same product. A FREQUENCY stage
+    without ``fd_weight_vector`` runs its ``apply``, and the publish
+    refuses it (``NotImplementedError``).
     """
 
     #: stable identifier used in the chain and the command API
