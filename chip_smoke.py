@@ -855,11 +855,14 @@ def drive_apply(ex, n_slider, n_clicks, n_again, rng):
     suppressed: no RL launch), then Apply ``n_again`` times more (the plan
     is cached; the median of the repeats is reported, their host time varies). Each
     Apply launches the cluster kernel once per non-empty checkpoint group
-    and the half-iteration kernel never (the canvas fits a cluster).
+    (``rlsep.launch_plan`` takes the wide route for some of them: counted
+    apart as well) and the half-iteration kernel never (the canvas fits a
+    cluster).
     Returns (measurements, band geometry, the deconvolution's input at the
     first Apply)."""
     import torch
 
+    from thz_image_explorer_tpu_torch.ops import rlsep
     from thz_image_explorer_tpu_torch.ops.rlsep import launch_schedule
     from thz_image_explorer_tpu_torch.ops.rlsep import rl_bands_separable as rl
 
@@ -879,13 +882,24 @@ def drive_apply(ex, n_slider, n_clicks, n_again, rng):
     torch.cuda.synchronize()
     apply_ms = (time.perf_counter() - t0) * 1e3
     apply_launches, tiled_launches = rl.launches, rl.launches_tiled
+    wide_launches = rl.launches_wide
     geometry = p.filters["deconvolution"]._plan_cache[1]
     expected = len(launch_schedule(geometry.n_iter))
+    h2 = ex.image.shape[0] + 2 * int(geometry.pad_r.max())
+    w2 = ex.image.shape[1] + 2 * int(geometry.pad_c.max())
+    kr, kc = geometry.px.shape[1], geometry.py.shape[1]
+    s = rlsep.cluster_size_for(h2, w2, kr, kc)
+    plan = rlsep.launch_plan(geometry.n_iter, h2, w2, kr, kc, s,
+                             rlsep._sms(torch.cuda.current_device()))
+    expected_wide = sum(1 for *_, blocks in plan if blocks)
     out = dict(apply_ms=apply_ms, stage_ms=p.timings_ms["deconvolution"],
                rl_launches=apply_launches, rl_launches_expected=expected,
+               rl_wide_launches=wide_launches,
+               rl_wide_blocks=[list(blocks) for *_, blocks in plan if blocks],
                rl_tiled_launches=tiled_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     assert apply_launches == expected > 0, (apply_launches, expected)
+    assert wide_launches == expected_wide, (wide_launches, expected_wide)
     assert tiled_launches == 0, tiled_launches
     width, height = ex.image.shape
     assert np.isfinite(ex.image).all(), "deconvolved image not finite"
@@ -912,13 +926,14 @@ def drive_apply(ex, n_slider, n_clicks, n_again, rng):
     assert p.slots[k] is p.slots[k - 1], "a slider step kept the deconvolved result"
     out.update(slider_ms=[m for m, _ in slider], slider_rl_launches=[n for _, n in slider],
                click_ms=[m for m, _ in clicks], click_rl_launches=[n for _, n in clicks])
-    tiled_before = rl.launches_tiled
+    tiled_before, wide_before = rl.launches_tiled, rl.launches_wide
     again, again_stage = [], []
     for _ in range(n_again):
         again.append(run(lambda: ex.update_filter("deconvolution", force=True)))
         again_stage.append(p.timings_ms["deconvolution"])
     assert all(n == apply_launches for _ms, n in again) and rl.launches_tiled == tiled_before, \
         (again, apply_launches)
+    assert rl.launches_wide - wide_before == n_again * wide_launches, rl.launches_wide
     assert np.isfinite(ex.image).all()
     again_ms = [m for m, _ in again]
     out.update(apply_again_ms=statistics.median(again_ms), apply_again_ms_runs=again_ms,
@@ -994,6 +1009,103 @@ def check_rl(padded, px, py, n_iter, label, route, ref=None):
     return rl_errors(got, ref, label)
 
 
+def check_wide(padded, px, py, n_iter, label, plain=False):
+    """The wide route against the cluster route on the card, bit for bit:
+    ``rl_bands_separable`` on each route of :func:`rl_route` (``"wide"``
+    holds the wide kernel to the cluster route where the package's rule
+    keeps the cluster route, as at 200²); each twice (reruns bit-identical),
+    its launches and wide launches as the plan says, and timed (device
+    time). With ``plain``, the package's rule and the forced wide route are
+    also held to ``rl_bands_separable_plain`` run on the card, as
+    :func:`check_rl` holds the cluster route at 200²."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    fn = rlsep.rl_bands_separable
+    _, h2, w2 = padded.shape
+    kr, kc = px.shape[1], py.shape[1]
+    s = rlsep.cluster_size_for(h2, w2, kr, kc)
+    assert s is not None, (label, padded.shape)
+    sms = rlsep._sms(torch.cuda.current_device())
+    ref = rlsep.rl_bands_separable_plain(padded, px, py, n_iter) if plain else None
+    out, first = {}, None
+    for route in ("cluster", "rule", "wide"):
+        with rl_route(route):
+            plan = rlsep.launch_plan(n_iter, h2, w2, kr, kc, s, sms)
+            before = fn.launches, fn.launches_wide
+            got = fn(padded, px, py, n_iter)
+            counted = fn.launches - before[0], fn.launches_wide - before[1]
+            again = fn(padded, px, py, n_iter)
+            ms = device_ms(lambda: fn(padded, px, py, n_iter), reps=5, inner=1, warm=1)
+        torch.cuda.synchronize()
+        wide = [list(blocks) for *_, blocks in plan if blocks]
+        assert counted == (len(plan), len(wide)), (label, route, counted, wide)
+        bits = got.view(torch.int32)
+        assert torch.equal(bits, again.view(torch.int32)), f"{label}: two {route} runs differ"
+        if first is None:
+            first = bits
+        elif not torch.equal(bits, first):
+            raise AssertionError(f"{label}: the {route} plan differs from the cluster route")
+        out[route] = dict(ms=ms, launches=counted[0], launches_wide=counted[1], wide_blocks=wide)
+        if ref is not None and route != "cluster":
+            err, rel = rl_errors(got, ref, f"{label} {route} vs plain")
+            out[route].update(max_abs_err_vs_plain=err, max_rel_err_vs_plain=rel)
+    return dict(shape=list(padded.shape), taps=[kr, kc], n_iter=np.asarray(n_iter).tolist(),
+                sms=sms, **out)
+
+
+def phase_rl_wide(t, cube, dev, smi, seed):
+    """The ``rl_wide_vs_cluster`` phase: :func:`check_wide` at the Apply's RL
+    inputs of the 200x200 scan, of one rank's band subset of a sharded
+    Apply (the last rank of 2 and of 4, as ``band_split`` gives them), of
+    the PSF tool's PSF (knife-edge traces of the reference fixture's shape)
+    on that scan, and of a 512x512 scan, each with the synthetic PSF at the
+    default parameters but the tool's. At 512x512, where the package's rule
+    takes the wide route, both routes are also held to the plain version
+    on the card (per band |kernel - plain| <= _RL_REL_TOL * max|plain|)."""
+    import torch
+
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.ops import rlsep
+    from thz_image_explorer_tpu_torch.psf_tool.app import PsfToolApp
+    from thz_image_explorer_tpu_torch.psf_tool.data_loader import KnifeEdgeMeasurement
+
+    params = dec.DeconvolutionParams()
+    data = torch.as_tensor(cube, device=dev)
+    n, m = cube.shape[:2]
+    geometry = dec.plan_bands(params, synthetic_psf(), t, (n, m), 0.5, 0.5)
+    inputs = dec.rl_inputs(data, geometry)
+    cases = {"apply200": check_wide(*inputs, "apply200")}
+    for world in (2, 4):
+        bands = dec.band_split(inputs[3], world)[world - 1]
+        mine = torch.as_tensor(bands, device=dev)
+        sub = [x.index_select(0, mine).contiguous() for x in inputs[:3]]
+        label = f"rank{world - 1}_of_{world}"
+        cases[label] = check_wide(*sub, inputs[3][bands], label)
+    del inputs, sub
+    knife_x = KnifeEdgeMeasurement(*knife_edge_traces(seed=seed))
+    knife_y = KnifeEdgeMeasurement(*knife_edge_traces(seed=seed + 1, width_scale=1.2))
+    tool = PsfToolApp(device=dev)
+    tool.result = drive_psf_tool(knife_x, knife_y, dev)[0]
+    tool_geometry = dec.plan_bands(params, tool.runtime_psf(), t, (n, m), 0.5, 0.5)
+    cases["psf_tool"] = check_wide(*dec.rl_inputs(data, tool_geometry), "psf_tool")
+    del data
+    t5, cube5 = synthetic_scan(512, 512, cube.shape[2], seed=seed)
+    geometry5 = dec.plan_bands(params, synthetic_psf(), t5, (512, 512), 0.5, 0.5)
+    inputs5 = dec.rl_inputs(torch.as_tensor(cube5, device=dev), geometry5)
+    del cube5
+    cases["apply512"] = check_wide(*inputs5, "apply512", plain=True)
+    del inputs5
+    torch.cuda.empty_cache()
+    emit(phase="rl_wide_vs_cluster", card=smi, crossover=rlsep.WIDE_IDLE_SHARE,
+         bit_for_bit=True, cases=cases,
+         tolerance=f"apply512 vs plain: per band |kernel-plain| <= {_RL_REL_TOL} * max|plain|",
+         timing="ms: the whole RL run, device time behind a spin (device_ms); cluster: no "
+                "launch on the wide route; rule: the package's; wide: every launch "
+                "rlsep.wide_blocks can split over more blocks than a cluster holds")
+
+
 def check_bandsum(data, geometry, name):
     """The band-sum kernel against its plain version on the Apply's own
     inputs for the (X, Y, T) cube ``data`` (phases a and b, then the RL
@@ -1065,6 +1177,23 @@ def _patched(module, name, value):
         yield
     finally:
         setattr(module, name, kept)
+
+
+def rl_route(route):
+    """``rlsep.launch_plan`` as the package has it (``"rule"``), with no
+    launch on the wide route (``"cluster"``), or with every launch that
+    ``rlsep.wide_blocks`` can split over more blocks than a cluster holds
+    on the wide route (``"wide"``: the rule's conditions on the idle share
+    and on passes lifted)."""
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    stack = contextlib.ExitStack()
+    if route == "cluster":
+        stack.enter_context(_patched(rlsep, "wide_blocks", lambda *_a: None))
+    elif route == "wide":
+        stack.enter_context(_patched(rlsep, "WIDE_IDLE_SHARE", -1.0))
+        stack.enter_context(_patched(rlsep, "passes", lambda rows: rows))
+    return stack
 
 
 def preferred_cluster(s):
@@ -1540,6 +1669,7 @@ def zero_counts():
     env.envelope.launches = 0
     bs.weighted_spectrum.launches = 0
     rlsep.rl_bands_separable.launches = 0
+    rlsep.rl_bands_separable.launches_wide = 0
     rlsep.rl_bands_separable.launches_tiled = 0
     rlsep.rl_bands_separable_grouped.launches = 0
     rl2d.richardson_lucy_direct.launches = 0
@@ -1559,6 +1689,7 @@ def read_counts():
                 bandsum=bs.weighted_spectrum.launches,
                 envelope=env.envelope.launches,
                 rlsep_cluster=rlsep.rl_bands_separable.launches,
+                rlsep_wide=rlsep.rl_bands_separable.launches_wide,
                 rlsep=rlsep.rl_bands_separable.launches_tiled,
                 rlsep_grouped=rlsep.rl_bands_separable_grouped.launches,
                 rl2d=rl2d.richardson_lucy_direct.launches + rl2d.richardson_lucy_direct.launches_tiled)
@@ -4101,7 +4232,7 @@ def pm_pass(t, cube, npy, tmp, sub, seed, short, name, device):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("tilt_kernel", "polar_kernel"),
+    ap.add_argument("--only", choices=("tilt_kernel", "polar_kernel", "rl_wide"),
                     help="after the device and build phases, run this phase alone")
     args = ap.parse_args()
 
@@ -4155,6 +4286,8 @@ def main() -> int:
     if args.only:
         if args.only == "tilt_kernel":
             phase_tilt_kernel(t, cube, name, smi)
+        elif args.only == "rl_wide":
+            phase_rl_wide(t, cube, dev, smi, args.seed)
         else:
             phase_polar_kernel(name, smi)
         print(json.dumps({"ok": True, "only": args.only, "device": {
@@ -4299,6 +4432,7 @@ def main() -> int:
     # 5. the Apply path on the same Explorer: filters and ROIs stay active
     sr.spectral_reduction_sums.launches = 0
     rlsep.rl_bands_separable.launches = 0
+    rlsep.rl_bands_separable.launches_wide = 0
     rlsep.rl_bands_separable.launches_tiled = 0
     bs.weighted_spectrum.launches = 0
     n_again = 5
@@ -4420,7 +4554,9 @@ def main() -> int:
          tolerance=f"per band |kernel-plain| <= {_RL_REL_TOL} * max|plain|",
          cluster_ms=rl_ms, cluster_ms_s8=rl8_ms, tiled_ms=tiled_ms, plain_ms=rl_plain_ms,
          bound_ms=rl_bound, critical_path_ms=critical_ms, critical_path_ms_s8=critical8_ms,
-         launches_per_apply=apply["rl_launches"], card=smi)
+         launches_per_apply=apply["rl_launches"],
+         wide_launches_per_apply=apply["rl_wide_launches"], card=smi)
+    phase_rl_wide(t, cube, dev, smi, args.seed)
 
     # 6b. the general 2-D RL kernel: (a) the Apply's band-0 canvas with an
     # asymmetric 9x9 PSF at the band's n_iter, on the cluster route, against
@@ -4876,7 +5012,7 @@ def main() -> int:
     md_launches = {kernel: {"world1": multi["world1"]["launches"][kernel],
                             **{f"world{w}": [r["launches"][kernel] for r in multi[f"world{w}"]["ranks"]]
                                for w in (2, 4)}}
-                   for kernel in ("specred", "rlsep_cluster", "envelope", "bandsum")}
+                   for kernel in ("specred", "rlsep_cluster", "rlsep_wide", "envelope", "bandsum")}
     md_block = {f"world{w}": multi[f"world{w}"]["kernels_at_block"] for w in (2, 4)}
 
     # 9c. the incremental Pipeline and its publish on a pixel-sharded cube:
@@ -4946,6 +5082,7 @@ def main() -> int:
         # the Apply path's run: six Applies, one launch per checkpoint group
         "launches": apply_launches,
         "launches_per_apply": apply["rl_launches"],
+        "wide_launches_per_apply": apply["rl_wide_launches"],
         "max_abs_err": rl_err,
         "max_rel_err": rl_rel,
         "ms": statistics.median(rl_ms),
@@ -4967,6 +5104,9 @@ def main() -> int:
         "launches_psf_tool": psf_launches["rlsep_cluster"],
         "launches_shell": shell_launches["rlsep_cluster"],
         "launches_multi_device": md_launches["rlsep_cluster"],
+        "wide_launches_tilt": tilt_launches["rlsep_wide"],
+        "wide_launches_psf_tool": psf_launches["rlsep_wide"],
+        "wide_launches_multi_device": md_launches["rlsep_wide"],
         "launches_pipeline_mesh": pm_launches["rlsep_cluster"],
         "tool_psf": dict(shape=tool_shape, route=tool_route, max_abs_err=tool_rl_err,
                          ms=tool_rl_ms, plain_ms=tool_rl_plain_ms, bound_ms=tool_rl_bound,

@@ -134,6 +134,35 @@ def test_apply_phases_in_order_under_the_stage(session):
     assert under[0].device_ms is None  # the plan is host work only
 
 
+def test_rl_span_carries_the_wide_launches(session, monkeypatch):
+    """The ``deconv.rl`` span's attributes: the Apply's launches on the wide
+    route and each one's blocks per band, none on the CPU; through a
+    stand-in for the kernel's wrapper that reports two such launches, those
+    two. ``annotate`` on the no-op span does nothing."""
+    from thz_image_explorer_tpu_torch.ops import deconvolution as dec
+    from thz_image_explorer_tpu_torch.ops import rlsep
+
+    _, _, got = _traced(session, STEPS["apply"])
+    rl = [s for s in got if s.name == "deconv.rl"]
+    assert len(rl) == 1 and rl[0].attrs == {"wide_launches": 0, "sms_per_band": []}
+    real = rlsep.rl_bands_separable
+
+    def wide(*args, **kwargs):
+        out = real(*args, **kwargs)
+        real.launches_wide += 2
+        real.wide_blocks = [(37, 20), (69,)]
+        return out
+
+    monkeypatch.setattr(real, "launches_wide", 5)
+    monkeypatch.setattr(real, "wide_blocks", [])
+    monkeypatch.setattr(dec, "rl_bands_separable", wide)
+    _, _, got = _traced(session, STEPS["apply"])
+    rl = [s for s in got if s.name == "deconv.rl"]
+    assert rl[0].attrs == {"wide_launches": 2, "sms_per_band": [(37, 20), (69,)]}
+    spans.NO_SPAN.annotate(wide_launches=1)
+    assert spans.span("deconv.rl") is spans.NO_SPAN
+
+
 @pytest.mark.parametrize("kind", sorted(STEPS))
 def test_spans_nest_share_the_request_and_lie_inside_the_step(session, kind):
     t_send, t_report, got = _traced(session, STEPS[kind])

@@ -42,6 +42,23 @@
 // on data: reruns are bit-identical. The sums run in another order than
 // csrc/rlsep.cu's, so the two agree within rounding, not bit for bit.
 //
+// The wide route (rl_cluster_wide) takes the late checkpoint launches, where
+// few bands still iterate: at the 512x512 Apply the clusters of the last
+// four bands or fewer hold at most 64 of an H100's 132 SMs (16 for band 0's
+// last 58 iterations), while each CTA of band 0's cluster makes three passes
+// a half over its 35-row slab. One cooperative launch (every block
+// resident) runs each band on more blocks than a cluster holds, in
+// proportion to its iterations left (ops/rlsep.launch_plan): one pass a
+// half at 512x512. u and rel live in device memory, which L2 holds: each
+// half stages the block's slab and halo with one bulk copy, runs half<>
+// into device memory and passes a band-wide barrier, a counter in device
+// memory (release on arrival, acquire while waiting). That staging and
+// those barriers cost about a quarter of a wide iteration at 512x512, paid
+// for by the passes the route saves; a canvas whose cluster CTAs make one
+// pass a half keeps the cluster route. Each output meets the same taps and
+// values in the same order as on the cluster route: the two agree bit for
+// bit.
+//
 // The grouped mode replaces :_sep_kernel_group (launched by
 // rl_bands_separable_grouped), which interleaves the serial chains of G
 // bands in one TPU program to hide each chain's latency. Here it is the G
@@ -177,8 +194,12 @@ __device__ __forceinline__ void blocked_correlation(const float* tq, int m_end, 
 // P / (R src C^T + 1e-12) with src = u; SECOND == true: dst = u *= R^T src C
 // with src = rel (the taps tqr, tqc are then the mirrored ones). rows[w]
 // points at src's canvas row lo - L.hr + w wherever it lives; pb at P's
-// row lo.
-template <bool SECOND>
+// row lo. PREFETCH loads the epilogue's operand (P, or u) before the axis-1
+// correlation instead of after it: the wide route, whose dst lies in
+// device memory. The arithmetic is the same either way. The cluster route,
+// whose dst lies in shared memory, keeps the load after: prefetched there
+// it ran 8 % slower at 200x200 and 0.7 % at 512x512 (H100).
+template <bool SECOND, bool PREFETCH = false>
 __device__ __forceinline__ void half(const float* const* rows, float* dst, const float* pb,
                                      const float* tqr, const float* tqc, float* strip, int n,
                                      int hr, int hc, const Layout& L, int w2) {
@@ -215,18 +236,24 @@ __device__ __forceinline__ void half(const float* const* rows, float* dst, const
         const int c0 = cb + cw * 32 + g * kCB;
         if (c0 >= w2) continue;
         const float* sp = strip + (size_t)(L.hc - hc + c0) * (kPass + 1) + rg * 8 + r;
+        float* d = dst + (size_t)row * L.ws + c0;
+        const float* p = pb + (size_t)row * w2 + c0;
+        float pre[kCB];
+        if (PREFETCH) {
+#pragma unroll
+          for (int i = 0; i < kCB; ++i)
+            pre[i] = row < n && c0 + i < w2 ? (SECOND ? d[i] : p[i]) : 0.0f;
+        }
         float acc[kCB] = {};
         blocked_correlation<kCB>(tqc, mc, acc, [&](int m) { return sp[m * (kPass + 1)]; });
         if (row < n) {
-          float* d = dst + (size_t)row * L.ws + c0;
-          const float* p = pb + (size_t)row * w2 + c0;
 #pragma unroll
           for (int i = 0; i < kCB; ++i) {
             if (c0 + i < w2) {
               if (SECOND)
-                d[i] = d[i] * acc[i];
+                d[i] = (PREFETCH ? pre[i] : d[i]) * acc[i];
               else
-                d[i] = p[i] / (acc[i] + 1e-12f);
+                d[i] = (PREFETCH ? pre[i] : p[i]) / (acc[i] + 1e-12f);
             }
           }
         }
@@ -372,6 +399,214 @@ __global__ void __launch_bounds__(kThreads) rl_cluster(Args a) {
   }
 }
 
+constexpr int kMaxWide = 8;                              // bands a wide launch holds
+constexpr size_t kWideStaticBytes = 2 * sizeof(int) + 8;  // reach[2], the staging mbarrier
+
+// The wide route's shared memory: two tables of nwin row pointers (the
+// halo window's rows of u and of rel: staged copies, or the zero row), the
+// taps as the cluster route lays them out, the staged rows (the slab and
+// its halo of L.hr rows a side, stride w2, 4 floats of slack so a copy can
+// keep its source's 16-byte phase), the strip and one zero row; the static
+// reach[2] and the staging mbarrier last. L is what half<> reads: the halo
+// window's geometry, and ws = w2, the stride of the device-memory rows it
+// writes.
+struct WideLayout {
+  Layout L;
+  int table;                    // pointers a table (nwin rounded up to even)
+  size_t stage, strip, zero, bytes;  // float offsets; total bytes
+};
+
+__host__ __device__ inline WideLayout wide_layout(int h2, int w2, int kr, int kc, int rows) {
+  WideLayout l;
+  Layout& L = l.L;
+  L.rows = rows;
+  L.ws = w2;
+  L.hr = kr / 2;
+  L.hc = kc / 2;
+  L.nwin = rows + 2 * L.hr + 3 * kSR;
+  L.tlr = round_up(2 * L.hr + 3 * kSR, 4);
+  L.tlc = round_up(2 * L.hc + 3 * kCB, 4);
+  L.tcols = 2 * L.hc + w2 + 2 * kCB;
+  L.taps = 2 * (size_t)L.tlr + 2 * (size_t)L.tlc;
+  l.table = round_up(L.nwin, 2);
+  l.stage = L.taps;
+  l.strip = l.stage + (size_t)(rows + 2 * L.hr) * w2 + 4;
+  l.zero = l.strip + (size_t)L.tcols * (kPass + 1);
+  l.bytes = 2 * (size_t)l.table * sizeof(float*) + sizeof(float) * (l.zero + w2) +
+            kWideStaticBytes;
+  return l;
+}
+
+struct WideArgs {
+  float* u;
+  float* rel;  // (nb, h2, w2) scratch, by slot
+  const float* padded;
+  const float* px;
+  const float* py;
+  const int* order;
+  const int* n_iter;
+  unsigned* arrivals;  // by slot: the band barrier's counter
+  int nb, it0, it1, h2, w2, kr, kc, rows;
+  int first[kMaxWide + 1];  // slot j owns blocks first[j] .. first[j + 1] - 1
+  unsigned base[kMaxWide];  // arrivals[j] before this launch
+};
+
+// Copy floats src[0 .. count) to dst[0 .. count), where dst and src lie at
+// the same offset from a 16-byte boundary: the 16-byte-aligned body in one
+// bulk copy (the copy engine, through L2: another block wrote those rows),
+// completing on the mbarrier `bar` at parity `phase`, which it flips; the
+// ragged ends by L2 loads. Every thread returns with the rows in place for
+// itself; the caller's __syncthreads() makes the ends visible to all.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int count, unsigned bar,
+                                           unsigned& phase) {
+  const int head = min((int)((16 - ((size_t)src & 15)) & 15) / 4, count);
+  const int body = (count - head) / 4;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    // the rows came from generic stores, and the last generic reads of dst
+    // precede this copy: order both against the async proxy
+    asm volatile("fence.proxy.async;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(body * 16)
+                 : "memory");
+    if (body > 0)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"((unsigned)__cvta_generic_to_shared(dst + head)),
+          "l"(src + head), "r"(body * 16), "r"(bar)
+          : "memory");
+  }
+  if (tid < head) dst[tid] = __ldcg(src + tid);
+  const int tail = head + 4 * body;
+  if (tid < count - tail) dst[tail + tid] = __ldcg(src + tail + tid);
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(phase)
+      : "memory");
+  phase ^= 1;
+}
+
+// Every block of the band has arrived: a counter in device memory that only
+// grows, so a launch starts from the count the host passes and nothing
+// resets it. The block's writes precede thread 0's release (the first
+// __syncthreads), its reads follow thread 0's acquire (the second).
+__device__ __forceinline__ void band_barrier(unsigned* count, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(count) : "memory");
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
+    } while ((int)(seen - target) < 0);
+  }
+  __syncthreads();
+}
+
+// The wide route: one cooperative launch in which slot j's band runs on
+// first[j + 1] - first[j] blocks, each owning a row slab. u and rel live in
+// device memory (L2); each half stages the slab's window, runs half<> into
+// device memory and passes the band's barrier. Per output the same taps
+// meet the same values in the same order as in rl_cluster, so the two
+// routes agree bit for bit.
+__global__ void __launch_bounds__(kThreads, 1) rl_cluster_wide(WideArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int reach[2];
+  __shared__ __align__(8) unsigned long long stage_bar;
+  const unsigned bar = (unsigned)__cvta_generic_to_shared(&stage_bar);
+  unsigned phase = 0;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  const int h2 = a.h2, w2 = a.w2, kr = a.kr, kc = a.kc;
+  const WideLayout W = wide_layout(h2, w2, kr, kc, a.rows);
+  const Layout& L = W.L;
+  const float** rows_u = reinterpret_cast<const float**>(smem_raw);
+  const float** rows_rel = rows_u + W.table;
+  float* fs = reinterpret_cast<float*>(rows_rel + W.table);
+  float* strip = fs + W.strip;
+  float* zero = fs + W.zero;
+  const int tid = threadIdx.x;
+
+  int slot = 0;
+  while (slot + 1 < a.nb && (int)blockIdx.x >= a.first[slot + 1]) ++slot;
+  const int s = a.first[slot + 1] - a.first[slot], q = (int)blockIdx.x - a.first[slot];
+  int lo, n;
+  slab(h2, s, q, lo, n);
+  const int band = a.order[slot];
+  const int n_it = min(a.it1, a.n_iter[band]) - a.it0;
+  const size_t plane = (size_t)h2 * w2;
+  float* ub = a.u + (size_t)band * plane;
+  float* rb = a.rel + (size_t)slot * plane;
+  const float* pxb = a.px + (size_t)band * kr;
+  const float* pyb = a.py + (size_t)band * kc;
+
+  if (tid < 2) reach[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < kr; i += kThreads)
+    if (pxb[i] != 0.0f) atomicMax(&reach[0], abs(i - kr / 2));
+  for (int i = tid; i < kc; i += kThreads)
+    if (pyb[i] != 0.0f) atomicMax(&reach[1], abs(i - kc / 2));
+  __syncthreads();
+  const int hr = reach[0], hc = reach[1];
+  float* tr_a = fs;
+  float* tr_b = tr_a + L.tlr;
+  float* tc_a = tr_b + L.tlr;
+  float* tc_b = tc_a + L.tlc;
+  for (int k = tid; k < L.tlr; k += kThreads) {
+    const int d = k - kSR - hr;
+    const bool in = d >= -hr && d <= hr;
+    const int ia = kr / 2 + d, ib = kr / 2 - d;
+    tr_a[k] = in && ia >= 0 && ia < kr ? pxb[ia] : 0.0f;
+    tr_b[k] = in && ib >= 0 && ib < kr ? pxb[ib] : 0.0f;
+  }
+  for (int k = tid; k < L.tlc; k += kThreads) {
+    const int d = k - kCB - hc;
+    const bool in = d >= -hc && d <= hc;
+    const int ia = kc / 2 + d, ib = kc / 2 - d;
+    tc_a[k] = in && ia >= 0 && ia < kc ? pyb[ia] : 0.0f;
+    tc_b[k] = in && ib >= 0 && ib < kc ? pyb[ib] : 0.0f;
+  }
+  // the staged canvas rows j0 .. j1 - 1: every row a stored output meets
+  // with a non-zero tap. The window's other rows read the zero row; there
+  // the taps are zero, as they are for the real rows rl_cluster reads.
+  const int j0 = max(lo - hr, 0), j1 = min(lo + n + hr, h2);
+  const int count = (j1 - j0) * w2;
+  const float* src_u = ub + (size_t)j0 * w2;
+  const float* src_rel = rb + (size_t)j0 * w2;
+  float* stage_u = fs + W.stage + (((size_t)src_u >> 2) & 3);
+  float* stage_rel = fs + W.stage + (((size_t)src_rel >> 2) & 3);
+  for (int w = tid; w < L.nwin; w += kThreads) {
+    const int j = lo - L.hr + w;
+    const bool in = j >= j0 && j < j1;
+    rows_u[w] = in ? stage_u + (size_t)(j - j0) * w2 : zero;
+    rows_rel[w] = in ? stage_rel + (size_t)(j - j0) * w2 : zero;
+  }
+  for (int i = tid; i < w2; i += kThreads) zero[i] = 0.0f;
+  for (int i = tid; i < L.tcols * (kPass + 1); i += kThreads) strip[i] = 0.0f;
+
+  const float* pb = a.padded + (size_t)band * plane + (size_t)lo * w2;
+  unsigned* arrivals = a.arrivals + slot;
+  unsigned target = a.base[slot];
+  for (int it = 0; it < n_it; ++it) {
+    stage_rows(stage_u, src_u, count, bar, phase);
+    __syncthreads();
+    half<false, true>(rows_u, rb + (size_t)lo * w2, pb, tr_a, tc_a, strip, n, hr, hc, L, w2);
+    target += s;
+    band_barrier(arrivals, target);
+    stage_rows(stage_rel, src_rel, count, bar, phase);
+    __syncthreads();
+    half<true, true>(rows_rel, ub + (size_t)lo * w2, pb, tr_b, tc_b, strip, n, hr, hc, L, w2);
+    target += s;
+    band_barrier(arrivals, target);
+  }
+}
+
 template <int G>
 cudaError_t launch(const Args& a, int dynamic, cudaStream_t stream) {
   cudaError_t err =
@@ -441,6 +676,45 @@ int launch_group(void* u, const void* padded, const void* px, const void* py, co
   return (int)err;
 }
 
+int launch_wide(WideArgs& a, int b, const int* first, const unsigned* base, cudaStream_t stream) {
+  if (b < 1 || a.nb < 1 || a.nb > b || a.nb > kMaxWide || a.h2 < 1 || a.w2 < 1 || a.kr < 1 ||
+      a.kc < 1 || a.it0 < 0 || a.it1 <= a.it0 || first[0] != 0)
+    return (int)cudaErrorInvalidValue;
+  a.rows = 0;
+  for (int j = 0; j < a.nb; ++j) {
+    const int s = first[j + 1] - first[j];
+    if (s < 1 || s > a.h2) return (int)cudaErrorInvalidValue;
+    a.rows = max(a.rows, (a.h2 + s - 1) / s);
+    a.first[j] = first[j];
+    a.base[j] = base[j];
+  }
+  a.first[a.nb] = first[a.nb];
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = wide_layout(a.h2, a.w2, a.kr, a.kc, a.rows).bytes;
+  if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
+  const int dynamic = (int)(bytes - kWideStaticBytes);
+  err = cudaFuncSetAttribute(rl_cluster_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dynamic);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(first[a.nb], 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dynamic;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, rl_cluster_wide, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared-memory bytes of one CTA at cluster size s, static and dynamic
@@ -470,6 +744,47 @@ extern "C" int thz_rlsep_cluster(void* u, const void* padded, const void* px, co
                                  int b, int h2, int w2, int kr, int kc, int s, void* stream) {
   return launch_group(u, padded, px, py, order, n_iter, nb, it0, it1, b, h2, w2, kr, kc, s, 1,
                       stream);
+}
+
+// Shared-memory bytes of one block of the wide route whose largest slab
+// holds `rows` rows (ops/rlsep.wide_smem_bytes computes the same).
+extern "C" long long thz_rlsep_wide_smem(int h2, int w2, int kr, int kc, int rows) {
+  if (h2 < 1 || w2 < 1 || kr < 1 || kc < 1 || rows < 1) return -1;
+  return (long long)wide_layout(h2, w2, kr, kc, rows).bytes;
+}
+
+// The wide route: iterations it0 .. it1-1 of the first nb (1..8) slots of
+// the order in one cooperative launch, slot j on blocks first[j] ..
+// first[j + 1] - 1 (host int array of nb + 1 entries, first[0] = 0, each
+// band's share 1..h2 blocks, every block resident on the card or the
+// launch is refused). rel: (nb, h2, w2) f32 scratch; arrivals: (8,) u32 on
+// the device, the band barriers' counters, which only grow: base (host u32
+// array of nb) holds slot j's count before this launch, and the launch
+// adds 2 (first[j + 1] - first[j]) (min(it1, n_iter) - it0) to it. The
+// other arguments and the result are thz_rlsep_cluster's; u ends equal to
+// the cluster route's bit for bit.
+extern "C" int thz_rlsep_wide(void* u, void* rel, const void* padded, const void* px,
+                              const void* py, const void* order, const void* n_iter,
+                              void* arrivals, int nb, int it0, int it1, int b, int h2, int w2,
+                              int kr, int kc, const int* first, const unsigned* base,
+                              void* stream) {
+  WideArgs a;
+  a.u = static_cast<float*>(u);
+  a.rel = static_cast<float*>(rel);
+  a.padded = static_cast<const float*>(padded);
+  a.px = static_cast<const float*>(px);
+  a.py = static_cast<const float*>(py);
+  a.order = static_cast<const int*>(order);
+  a.n_iter = static_cast<const int*>(n_iter);
+  a.arrivals = static_cast<unsigned*>(arrivals);
+  a.nb = nb;
+  a.it0 = it0;
+  a.it1 = it1;
+  a.h2 = h2;
+  a.w2 = w2;
+  a.kr = kr;
+  a.kc = kc;
+  return launch_wide(a, b, first, base, static_cast<cudaStream_t>(stream));
 }
 
 // The grouped mode: as thz_rlsep_cluster with g (1..8) consecutive slots of

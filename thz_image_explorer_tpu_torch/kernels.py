@@ -66,6 +66,8 @@ SIGNATURES = {
         "thz_rlsep_grouped": (_I, [_P] * 6 + [_I] * 10 + [_P]),
         "thz_rlsep_cluster_smem": (_LL, [_I] * 5),
         "thz_rlsep_grouped_smem": (_LL, [_I] * 6),
+        "thz_rlsep_wide": (_I, [_P] * 8 + [_I] * 8 + [_P] * 3),
+        "thz_rlsep_wide_smem": (_LL, [_I] * 5),
     },
     "rl2d_cluster": {
         "thz_rl2d_cluster": (_I, [_P] * 3 + [_I] * 6 + [_P]),

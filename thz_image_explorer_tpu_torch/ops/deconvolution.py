@@ -462,8 +462,13 @@ def _rl_checkpointed(padded, px, py, n_iter, progress, cancelled, mesh,
         done += 1
         return stop
 
-    with spans.span("deconv.rl", padded.device):
+    # the wrapper's own counters, whatever stands in for it here
+    counted = rlsep.rl_bands_separable
+    with spans.span("deconv.rl", padded.device) as span:
+        wide = counted.launches_wide
         u = rl_bands_separable(padded, px, py, n_iter, between=lambda _d, _t: checkpoint())
+        wide = counted.launches_wide - wide
+        span.annotate(wide_launches=wide, sms_per_band=list(counted.wide_blocks) if wide else [])
         while u is not None and done < total:
             if checkpoint():
                 return None

@@ -25,7 +25,15 @@ two kernels, chosen from the shapes alone before any launch
   held in the shared memory of a thread-block cluster of ``S`` CTAs
   (:func:`cluster_rows` splits its rows) and one launch runs a whole host
   checkpoint group (:func:`launch_schedule`), counted by
-  ``rl_bands_separable.launches``;
+  ``rl_bands_separable.launches``. Where the clusters of the bands still
+  iterating would leave much of the card idle (the late groups, few bands
+  with many iterations left), that group's launch takes the wide route of
+  the same source instead: one cooperative launch in which each band runs
+  on more blocks than one cluster holds, its estimate and ``rel`` in device
+  memory, a band-wide barrier between the halves (:func:`launch_plan`,
+  :func:`wide_blocks`). It counts in ``launches`` too, and in
+  ``rl_bands_separable.launches_wide``; its output equals the cluster
+  route's bit for bit;
 - the tiled route, ``csrc/rlsep.cu``, for a canvas whose estimate and
   scratch do not fit 16 CTAs' shared memory: two launches per iteration,
   counted by ``rl_bands_separable.launches_tiled``.
@@ -51,6 +59,7 @@ is where the deconvolution reports progress and checks cancellation.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -70,10 +79,24 @@ MAX_CLUSTER = 16
 PREFERRED_CLUSTER = 16
 #: the most bands one cluster of the grouped mode holds (kMaxGroup)
 MAX_GROUP = 8
+#: the most bands one launch of the wide route holds (kMaxWide)
+MAX_WIDE = 8
+#: the wide route's crossover: a checkpoint launch takes it only where the
+#: clusters of its bands would hold less than 1 - this share of the card's
+#: SMs. Measured at the 512² Apply's inputs on an H100 (132 SMs, clusters
+#: of 16; PERF.md §6): the launch of 6 bands (73 % of the SMs) ran 5 %
+#: faster on the wide route and those of 4 bands or fewer 34-51 %; a launch
+#: of 7 bands (85 %, a rank's subset of a sharded Apply) ran 17 % slower.
+#: The share lies between those two readings.
+WIDE_IDLE_SHARE = 0.2
+#: the fewest rows a block's slab holds on the wide route: one strip (kSR)
+WIDE_MIN_ROWS = 8
 # csrc/rlsep_cluster.cu's strip height, rows per pass and axis-1 block
 # (kSR, kPass, kCB) and its static shared memory per band (reach[2])
 _SR, _PASS, _CB = 8, 16, 8
 _STATIC_SMEM = 8
+# and the wide route's (reach[2] and the staging mbarrier)
+_STATIC_SMEM_WIDE = 16
 
 Between = Optional[Callable[[int, int], bool]]
 
@@ -196,6 +219,77 @@ def grouped_plan(n_iter, group: int) -> list[tuple[int, int, list[list[int]]]]:
             for i0, i1, nb in launch_schedule(n_iter)]
 
 
+def wide_smem_bytes(h2: int, w2: int, kr: int, kc: int, rows: int) -> int:
+    """Shared memory of one block of the wide route whose largest slab holds
+    ``rows`` rows (``wide_layout`` in ``csrc/rlsep_cluster.cu``, plus its
+    static bytes): two tables of the halo window's row pointers, the taps,
+    the slab and its halo staged from device memory, the strip and one zero
+    row. ``thz_rlsep_wide_smem`` of the built library returns the same."""
+    hr, hc = kr // 2, kc // 2
+    table = _round_up(rows + 2 * hr + 3 * _SR, 2)
+    taps = 2 * _round_up(2 * hr + 3 * _SR, 4) + 2 * _round_up(2 * hc + 3 * _CB, 4)
+    stage = (rows + 2 * hr) * w2 + 4
+    strip = (2 * hc + w2 + 2 * _CB) * (_PASS + 1)
+    return 2 * table * 8 + 4 * (taps + stage + strip + w2) + _STATIC_SMEM_WIDE
+
+
+def wide_blocks(iters, h2: int, w2: int, kr: int, kc: int,
+                sms: int) -> Optional[tuple[int, ...]]:
+    """The wide route's blocks per band for one launch whose bands run
+    ``iters`` iterations each: in proportion to them over the card's ``sms``
+    SMs (one block an SM, so every block is resident), each at most ``h2 //
+    WIDE_MIN_ROWS`` (no slab thinner than one strip) and at least the fewest
+    whose slab fits one block's shared memory; where those floors overfill
+    the card, the largest shares give up blocks. None where no such split
+    fits the card."""
+    cap = h2 // WIDE_MIN_ROWS
+    least = next((s for s in range(1, cap + 1)
+                  if wide_smem_bytes(h2, w2, kr, kc, -(-h2 // s)) <= SMEM_PER_BLOCK), None)
+    if least is None or not 1 <= len(iters) <= MAX_WIDE or least * len(iters) > sms:
+        return None
+    total = sum(iters)
+    blocks = [min(cap, max(least, sms * it // total)) for it in iters]
+    while sum(blocks) > sms:  # the last of the largest, so the order holds
+        blocks[len(blocks) - 1 - blocks[::-1].index(max(blocks))] -= 1
+    return tuple(blocks)
+
+
+def passes(rows: int) -> int:
+    """Passes of one half-iteration over a slab of ``rows`` rows (``kPass``
+    rows a pass, as many as the block has threads for): the unit of a
+    block's time on either route. A pass of one row costs about what a full
+    one does."""
+    return -(-rows // _PASS)
+
+
+def launch_plan(n_iter, h2: int, w2: int, kr: int, kc: int, s: int,
+                sms: int) -> list[tuple[int, int, int, tuple[int, ...]]]:
+    """The routes of :func:`launch_schedule`'s launches, from what the host
+    sees: ``(i0, i1, nb, blocks)`` per launch, ``blocks`` empty for the
+    cluster route (``nb`` clusters of ``s`` CTAs) and, for the wide route,
+    the blocks of each of the ``nb`` bands in the descending-``n_iter``
+    order (:func:`wide_blocks` over the card's ``sms`` SMs). A launch takes
+    the wide route where it holds at most :data:`MAX_WIDE` bands, their
+    clusters would leave more than :data:`WIDE_IDLE_SHARE` of the SMs idle,
+    the split fits, and it gives the largest share's blocks fewer
+    :func:`passes` over their slabs than a cluster's CTA makes over its own:
+    the wide route pays for its staging and its barriers in device memory
+    only with passes it saves (so a canvas whose cluster CTAs hold one pass
+    each keeps the cluster route)."""
+    n_iter = np.asarray(n_iter)
+    order = np.argsort(-n_iter, kind="stable")
+    plan = []
+    for i0, i1, nb in launch_schedule(n_iter):
+        blocks = None
+        if nb <= MAX_WIDE and 1 - nb * s / sms > WIDE_IDLE_SHARE:
+            iters = [min(i1, int(n_iter[b])) - i0 for b in order[:nb]]
+            blocks = wide_blocks(iters, h2, w2, kr, kc, sms)
+            if blocks and passes(-(-h2 // max(blocks))) >= passes(-(-h2 // s)):
+                blocks = None
+        plan.append((i0, i1, nb, blocks or ()))
+    return plan
+
+
 def banded_matrix(prof: torch.Tensor, size: int) -> torch.Tensor:
     """(B, k) profiles -> (B, size, size) ``M[b, i, j] = prof[b, j - i + k // 2]``,
     zero outside the profile (the JAX package's ``_banded_matrix``)."""
@@ -239,9 +333,13 @@ def rl_bands_separable(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
     On a CUDA tensor the route follows from the shapes: the cluster kernel
     at :func:`cluster_size_for` CTAs per band, one launch per non-empty
-    checkpoint group, counted by ``rl_bands_separable.launches``; or, where
-    no cluster holds the canvas, the tiled kernel, two launches per
-    iteration, counted by ``rl_bands_separable.launches_tiled``."""
+    checkpoint group, counted by ``rl_bands_separable.launches``, each
+    launch on the cluster or the wide route as :func:`launch_plan` finds
+    from the card's SMs (``launches_wide`` counts the
+    wide ones, ``wide_blocks`` holds the blocks per band of each of the
+    call's wide launches); or, where no cluster holds the canvas, the tiled
+    kernel, two launches per iteration, counted by
+    ``rl_bands_separable.launches_tiled``."""
     n_iter = _check(padded, px, py, n_iter)
     if padded.device.type == "cpu":
         return rl_bands_separable_plain(padded, px, py, n_iter, between=between)
@@ -258,7 +356,9 @@ def rl_bands_separable(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
 
 rl_bands_separable.launches = 0
+rl_bands_separable.launches_wide = 0
 rl_bands_separable.launches_tiled = 0
+rl_bands_separable.wide_blocks = []
 
 
 def rl_bands_separable_grouped(padded: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
@@ -289,35 +389,62 @@ def rl_bands_separable_grouped(padded: torch.Tensor, px: torch.Tensor, py: torch
 rl_bands_separable_grouped.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device: int) -> int:
+    """The card's SMs, for :func:`launch_plan`."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _run_cluster(padded, px, py, n_iter, between: Between, s: int,
                  group: Optional[int] = None):
-    """The cluster route's launches (``thz_rlsep_cluster``, counted by
+    """The cluster route's launches (``thz_rlsep_cluster``, or
+    ``thz_rlsep_wide`` where :func:`launch_plan` says so; counted by
     ``rl_bands_separable.launches``) or, with ``group``, the grouped mode's
     (``thz_rlsep_grouped``, ``group`` bands a cluster, counted by
     ``rl_bands_separable_grouped.launches``)."""
     lib = kernels.load("rlsep_cluster")
     b, h2, w2 = padded.shape
+    kr, kc = px.shape[1], py.shape[1]
     # bands by descending trip count: a launch from i0 runs the first nb
-    order = torch.as_tensor(np.argsort(-n_iter, kind="stable").astype(np.int32),
-                            device=padded.device)
+    order_host = np.argsort(-n_iter, kind="stable")
+    order = torch.as_tensor(order_host.astype(np.int32), device=padded.device)
     n_iter_dev = torch.as_tensor(n_iter.astype(np.int32), device=padded.device)
     u = padded.clone()
+    inputs = (padded.data_ptr(), px.data_ptr(), py.data_ptr(), order.data_ptr(),
+              n_iter_dev.data_ptr())
     stream = torch.cuda.current_stream(padded.device).cuda_stream
+    if group is None:
+        counter = rl_bands_separable
+        plan = launch_plan(n_iter, h2, w2, kr, kc, s, _sms(padded.device.index))
+        counter.wide_blocks = [blocks for *_, blocks in plan if blocks]
+    else:
+        counter = rl_bands_separable_grouped
+        plan = [(i0, i1, nb, ()) for i0, i1, nb in launch_schedule(n_iter)]
+    wide_nb = max((nb for _, _, nb, blocks in plan if blocks), default=0)
+    if wide_nb:
+        rel = torch.empty((wide_nb, h2, w2), dtype=torch.float32, device=padded.device)
+        arrivals = torch.zeros(MAX_WIDE, dtype=torch.int32, device=padded.device)
+        base = np.zeros(MAX_WIDE, np.uint32)  # each band barrier's arrivals so far
+    steps = iter(plan)
     spans = _groups(int(n_iter.max(initial=0)))
     for g, (i0, i1) in enumerate(spans):
         if between is not None and between(g, len(spans)):
             return None
-        nb = int((n_iter > i0).sum())
-        if nb == 0:
+        if i1 == i0:
             continue
-        args = (u.data_ptr(), padded.data_ptr(), px.data_ptr(), py.data_ptr(), order.data_ptr(),
-                n_iter_dev.data_ptr(), nb, i0, i1, b, h2, w2, px.shape[1], py.shape[1], s)
-        if group is None:
-            err = lib.thz_rlsep_cluster(*args, stream)
-            counter = rl_bands_separable
+        _, _, nb, blocks = next(steps)
+        shape = (nb, i0, i1, b, h2, w2, kr, kc)
+        if blocks:
+            first = np.concatenate([[0], np.cumsum(blocks)]).astype(np.int32)
+            err = lib.thz_rlsep_wide(u.data_ptr(), rel.data_ptr(), *inputs, arrivals.data_ptr(),
+                                     *shape, first.ctypes.data, base.ctypes.data, stream)
+            its = np.minimum(i1, n_iter[order_host[:nb]]) - i0
+            base[:nb] += (2 * np.asarray(blocks) * its).astype(np.uint32)
+            counter.launches_wide += 1
+        elif group is None:
+            err = lib.thz_rlsep_cluster(u.data_ptr(), *inputs, *shape, s, stream)
         else:
-            err = lib.thz_rlsep_grouped(*args, group, stream)
-            counter = rl_bands_separable_grouped
+            err = lib.thz_rlsep_grouped(u.data_ptr(), *inputs, *shape, s, group, stream)
         kernels.check_launch(err, "rlsep_cluster")
         counter.launches += 1
     return u

@@ -136,6 +136,11 @@ class Span:
         """Record nothing of this span (work that turned out not to run)."""
         self._keep = False
 
+    def annotate(self, **attrs):
+        """Add ``attrs`` to the span's attributes (what the work turned out
+        to be, known only once it ran)."""
+        self.attrs = {**(self.attrs or {}), **attrs}
+
     @property
     def device_ms(self) -> Optional[float]:
         """The span's device time in ms: its own events' (``device=``) or
@@ -159,6 +164,9 @@ class _NoSpan:
         return False
 
     def discard(self):
+        pass
+
+    def annotate(self, **attrs):
         pass
 
 
