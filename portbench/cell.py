@@ -40,8 +40,8 @@ def _device_info(device: torch.device, chips: int) -> dict:
 def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool, device,
              t_start: float) -> dict:
     """Set up the cell's session, measure ``seconds`` of its traffic, read
-    its metrics, free the program, and compare the sampled publishes with
-    the plain reference. ``t_start``: the process's start on the
+    its metrics, free the program, and compare the sampled publishes and
+    outputs with the plain reference. ``t_start``: the process's start on the
     perf_counter clock (set-up runs from there to the window)."""
     device = torch.device(device)
     cell = spec.workload(workload)
@@ -78,7 +78,7 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool, devic
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    numbers = compare_samples(cfg, seed, device, samples)
+    numbers = compare_samples(spec, cfg, seed, device, samples, spec.numbers(traffic))
     split["reference_s"] = time.perf_counter() - t_ref
     print(json.dumps({"setup_split": split, "samples": len(samples)}), file=sys.stderr)
     correct, checks = check.verdict(numbers, limits)
@@ -87,15 +87,21 @@ def run_cell(spec, workload: str, seed: int, seconds: float, traced: bool, devic
     return result
 
 
-def compare_samples(cfg: dict, seed: int, device, samples: list) -> dict:
-    """The comparison numbers of the sampled publishes ``(state, series)``
-    against the plain reference."""
+def compare_samples(spec, cfg: dict, seed: int, device, samples: list,
+                    names=check.NUMBERS) -> dict:
+    """The comparison numbers ``names`` of the samples ``(state, output,
+    what the step left)`` against the plain reference: a publish (output
+    None) by ``check.compare``, a step's returned output by its module's
+    ``compare``; each number the widest over the samples."""
     ref = Reference(cfg, seed, device)
     readings = []
     # one chain per state: visit the samples grouped by state
-    for state, got in sorted(samples, key=lambda it: repr(sorted(it[0].items()))):
-        want = ref.published(state)
-        readings.append(check.compare(got, want, bool(state.get("deconvolved")),
-                                      cfg["reference_roi"]))
+    for state, output, got in sorted(samples, key=lambda it: repr(sorted(it[0].items()))):
+        if output is None:
+            readings.append(check.compare(got, ref.published(state),
+                                          bool(state.get("deconvolved")), cfg["reference_roi"]))
+        else:
+            mod = spec.output(output)
+            readings.append(mod.compare(mod.capture(got), mod.reference(ref, state)))
     ref.close()
-    return check.worst(readings)
+    return check.worst(readings, names)

@@ -25,6 +25,10 @@ widest gap over the sample:
 ``apply_gap``
     in publishes after an Apply, the traces it changes: the pixel's final
     trace, the pixel-mean and ROI traces and the intensity image.
+
+A step that returns an output (a ``call`` step naming ``output``) is judged
+by ``portbench/outputs/<output>.py`` instead, whose ``NUMBERS`` join these in
+:func:`worst` and :func:`verdict`.
 """
 
 from __future__ import annotations
@@ -121,10 +125,12 @@ def compare(got: dict, want: dict, deconvolved: bool, ref_roi: int) -> dict:
     )
 
 
-def worst(readings: list[dict]) -> dict:
-    """Each number's widest gap over the publishes (None where none read it)."""
+def worst(readings: list[dict], names=NUMBERS) -> dict:
+    """Each number of ``names`` (the publish's, and those of the outputs a
+    cell's steps name), its widest gap over the readings (None where none
+    read it)."""
     out = {}
-    for name in NUMBERS:
+    for name in names:
         vals = [r[name] for r in readings if r.get(name) is not None]
         out[name] = max(vals) if vals else None
     return out

@@ -1,5 +1,5 @@
 """publish_ms.drag: host ms of ``Explorer.publish`` (a span around the
-call, which ends in its one device-to-host copy) per slider step."""
+call, which ends in its device-to-host copies) per slider step."""
 
 from portbench import readers
 

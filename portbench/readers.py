@@ -38,7 +38,8 @@ def stage_ms(run, cls: str, stage: str):
 
 def publish_ms(run, cls: str):
     """Host ms of ``Explorer.publish`` (a span around the call, which ends in
-    its one device-to-host copy) per step of class ``cls``."""
+    its device-to-host copies: two after a chain run, one after a click) per
+    step of class ``cls``."""
     per = [sum(b - a for a, b in s.publishes) * 1e3
            for s in run.window_steps(cls) if s.publishes]
     return sum(per) / len(per) if per else None

@@ -5,8 +5,17 @@ Every command goes through ``ExplorerWorker`` (``pipeline/worker.py``) to the
 without HTTP and without the page's state build. One client, a closed loop:
 a step's commands are sent with ``send`` and the next step goes only after
 the worker has reported the last of them done (its ``on_update`` callback,
-which runs once the command's publish has ended in its one device-to-host
-copy). A step's time runs from its first ``send`` to that report.
+which runs once the command's publish has ended in its device-to-host
+copies: two after a chain run, one after a click). A step's time runs from
+its first ``send`` to that report.
+
+A step of kind ``call`` instead calls one method and keeps what it returns:
+a ``WebApp`` method on this (the client's) thread, as the page's HTTP
+handler calls it (``"via": "webapp"``; the session then builds one
+``thz_image_explorer_tpu_torch.web.WebApp`` over its worker, without HTTP),
+or an ``Explorer`` method on the worker's thread through ``worker.call``
+(``"via": "worker"``). Its time runs from the call to its return; the output
+it names (``portbench/outputs/<output>.py``) judges what it returned.
 
 The steps, their commands and the state each leaves the session in come from
 the traffic file (``portbench/traffic/<name>.json``); the scan, the filters,
@@ -19,8 +28,9 @@ from __future__ import annotations
 import copy
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -36,7 +46,7 @@ TRACE_SECONDS = 5.0
 @dataclass
 class Step:
     kind: str
-    cls: str  # "slider" or "apply": which end-to-end metrics count it
+    cls: str  # "slider", "apply", ...: which end-to-end metrics count it
     state: dict
     t_send: float
     t_done: Optional[float] = None
@@ -47,6 +57,9 @@ class Step:
     timings: Optional[dict] = None
     stages: tuple = ()
     publishes: list = field(default_factory=list)
+    #: a ``call`` step's output name and what the call returned
+    output: Optional[str] = None
+    result: Any = None
 
     @property
     def ms(self) -> float:
@@ -121,6 +134,12 @@ def _fill(obj, x):
     return obj
 
 
+def outputs_of(traffic: dict) -> list[str]:
+    """The outputs that the traffic's steps name, in order."""
+    names = [spec["output"] for spec in traffic["steps"].values() if "output" in spec]
+    return list(dict.fromkeys(names))
+
+
 def _uses_x(obj) -> bool:
     if obj == "$x":
         return True
@@ -155,7 +174,8 @@ class TrafficPlan:
         return out
 
     def next(self):
-        """``(kind, step spec, commands, state after it)`` of the next step."""
+        """``(kind, step spec, commands, state after it)`` of the next step;
+        a ``call`` step's one call is its one command."""
         cycle = self.traffic["cycle"]
         kind = cycle[self._cycle_pos % len(cycle)]
         self._cycle_pos += 1
@@ -165,7 +185,7 @@ class TrafficPlan:
             x = self._sweep[self._sweep_pos % len(self._sweep)]
             self._sweep_pos += 1
         commands = [(c["call"], _fill(c.get("args", []), x), _fill(c.get("kwargs", {}), x))
-                    for c in spec["commands"]]
+                    for c in ([spec] if "call" in spec else spec["commands"])]
         self.state.update(_fill(spec.get("state", {}), x))
         return kind, spec, commands, copy.deepcopy(self.state)
 
@@ -189,9 +209,14 @@ class Session:
         self._done_lock = threading.Lock()
         self.publish_spans: list = []
         self.samples: list = []
-        #: seconds of each part of ``open`` (build, scan, open, session, warm-up)
+        #: seconds of each part of ``open`` (build, scan, open, session, the
+        #: page's ``WebApp`` where a step calls it, warm-up)
         self.setup_split: dict = {}
         self.worker = None
+        #: the page's ``WebApp`` over the worker, for ``"via": "webapp"`` calls
+        self.webapp = None
+        #: formatted exceptions of the ``call`` steps that raised
+        self.call_failures: list = []
         self.roi_ids = [f"roi-{i}" for i in range(len(cfg["rois"]))]
 
     # ----------------------------------------------------------- set-up
@@ -246,9 +271,17 @@ class Session:
         if not self._send(commands, "setup", "setup").ok:
             raise RuntimeError(f"the session's set-up failed: {list(self.worker.failures)}")
         split("session_s")
+        if any(spec.get("via") == "webapp" for spec in self.traffic["steps"].values()):
+            from thz_image_explorer_tpu_torch.web import WebApp
+
+            # its one state build; its on_update hook does nothing once the
+            # open has published
+            self.webapp = WebApp(worker=self.worker)
+            split("webapp_s")
         for _ in range(int(self.traffic["warmup_cycles"]) * len(self.traffic["cycle"])):
             if not self.next_step().ok:
-                raise RuntimeError(f"a warm-up step failed: {list(self.worker.failures)}")
+                raise RuntimeError(f"a warm-up step failed: {list(self.worker.failures)} "
+                                   f"{self.call_failures}")
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         split("warmup_s")
@@ -295,15 +328,36 @@ class Session:
         step.publishes = self.publish_spans[n_spans:]
         return step
 
+    def _call(self, spec, command, kind) -> Step:
+        """One call, on this thread through the page's ``WebApp`` or on the
+        worker's through ``worker.call``; the step keeps what it returned."""
+        name, args, kwargs = command
+        step = Step(kind, spec["class"], {}, time.perf_counter(), output=spec.get("output"))
+        try:
+            if spec["via"] == "webapp":
+                step.result = getattr(self.webapp, name)(*args, **kwargs)
+            else:
+                step.result = self.worker.call(lambda ex: getattr(ex, name)(*args, **kwargs),
+                                               timeout=STEP_TIMEOUT_S)
+            step.ok = True
+        except Exception:  # noqa: BLE001 - counted as a failed step, the run goes on
+            self.call_failures.append(traceback.format_exc())
+        step.t_done = time.perf_counter()
+        return step
+
     def next_step(self) -> Step:
-        """Send the traffic's next step and wait for its report."""
+        """Send the traffic's next step and wait for its report (a ``call``
+        step: for its return)."""
         kind, spec, commands, state = self.plan.next()
-        step = self._send(commands, kind, spec["class"])
+        if "call" in spec:
+            step = self._call(spec, commands[0], kind)
+        else:
+            step = self._send(commands, kind, spec["class"])
+            if self.traced:
+                step.timings = self.explorer.pipeline.timings_ms
+                step.stages = self._stages_run(spec)
         step.state = state
         step.n_time = len(self.explorer.plot.filtered_time)
-        if self.traced:
-            step.timings = self.explorer.pipeline.timings_ms
-            step.stages = self._stages_run(spec)
         return step
 
     def _stages_run(self, spec) -> tuple:
@@ -328,7 +382,9 @@ class Session:
     def window(self, seconds: float, tracer=None, sample: Optional[dict] = None):
         """Steps back to back for ``seconds``; returns ``(t0, steps,
         trace)``. ``sample`` ({class: k}) keeps, drawn from the seed, k of
-        each class's publishes completed in the window, with their states
+        each class's steps completed in the window, each as ``(state,
+        output, what it left)``: a ``call`` step's output name and returned
+        value, else None and the publish (``check.capture``)
         (``self.samples``)."""
         rng = np.random.default_rng([self.seed, 3])
         sample = sample or {}
@@ -345,13 +401,16 @@ class Session:
             steps.append(step)
             if tracer is not None and trace is None and step.t_done >= trace_end:
                 trace = tracer.stop()
+            # what a call returned stays only in the sample's reservoir
+            result, step.result = step.result, None
             if not step.ok or step.t_done > end or step.cls not in sample:
                 continue
             i, k = seen[step.cls], sample[step.cls]
             seen[step.cls] += 1
             slot = i if i < k else int(rng.integers(i + 1))
             if slot < k:
-                item = (step.state, check.capture(self.explorer, self.roi_ids))
+                item = ((step.state, step.output, result) if step.output is not None
+                        else (step.state, None, check.capture(self.explorer, self.roi_ids)))
                 if i < k:
                     reservoir[step.cls].append(item)
                 else:
@@ -362,6 +421,7 @@ class Session:
         return t0, steps, trace
 
     def close(self):
+        self.webapp = None
         if self.worker is not None:
             self.worker.close()
         self.worker = self.explorer = None

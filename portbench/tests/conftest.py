@@ -1,10 +1,11 @@
 """Fixtures of the benchmark's CPU tests: a benchmark root at tiny sizes.
 
 ``tiny_root`` is a directory laid out as the checkout's root: its own
-``BENCHMARK.json`` naming the real cells, with configurations cut to a few
-dozen pixels and 256 or 128 samples (and a deconvolution of 6 bands and 20
-iterations, which such a scan can hold), and a ``portbench`` directory whose
-traffic, limits and metric readers are the real ones.
+``BENCHMARK.json`` naming the real cells and the parked ones, with
+configurations cut to a few dozen pixels and 256 or 128 samples (and a
+deconvolution of 6 bands and 20 iterations, which such a scan can hold), and
+a ``portbench`` directory whose traffic, limits, metric readers and output
+modules are the real ones.
 
 Tests that need the card carry the ``cuda`` marker and decide inside the
 test whether there is one.
@@ -51,9 +52,13 @@ def tiny_config(name: str) -> dict:
 
 
 def make_root(path: Path) -> Path:
-    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    from portbench.spec import add_parked
+
+    # the parked cells' entries as they stand: their traffic, limits, readers
+    # and outputs are tested as a later PR would add them back
+    bench = add_parked(json.loads((REPO / "BENCHMARK.json").read_text()), HOME)
     (path / "portbench").mkdir(parents=True)
-    for sub in ("traffic", "limits", "metrics"):
+    for sub in ("traffic", "limits", "metrics", "outputs"):
         shutil.copytree(HOME / sub, path / "portbench" / sub)
     for entry in bench["configs"]:
         entry["file"] = f"portbench/configs/{entry['name']}.json"

@@ -17,6 +17,10 @@ from portbench import cell as cellmod
 from portbench.spec import Spec
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+#: per-layer metrics read from a card's device trace alone: a CPU run's
+#: trace holds no such kernel
+CARD_ONLY = {"specred_roofline.drag", "polar_roofline.slider", "envelope_roofline.view3d",
+             "topk_ms.view3d"}
 
 
 def _run(root, workload, traced=False, seconds=1.5, device="cpu"):
@@ -61,9 +65,8 @@ def test_cell_traffic_and_metric_found_by_name_from_new_files(tiny_root):
     assert traced["metrics"]["steps_done.edge"]["value"] > 0
 
 
-@pytest.mark.parametrize("traced", [False, True])
-def test_result_line_keys(tiny_root, traced):
-    result = _run(tiny_root, "scan512.drag", traced=traced)
+def _check_result_line(tiny_root, workload, traced):
+    result = _run(tiny_root, workload, traced=traced)
     keys = list(result)
     assert keys[:5] == KEYS
     assert keys[-1] == "checks"
@@ -72,9 +75,9 @@ def test_result_line_keys(tiny_root, traced):
     assert result["correct"] is True and result["failed"] == 0 and result["attempted"] > 0
     bench = json.loads((tiny_root / "BENCHMARK.json").read_text())
     want = {m["name"] for m in bench["per_layer" if traced else "end_to_end"]
-            if "scan512.drag" in m.get("workloads", ["scan512.drag"])}
+            if workload in m.get("workloads", [workload])}
     if traced:  # the trace-read metrics need a card's trace
-        want -= {"specred_roofline.drag"}
+        want -= CARD_ONLY
     assert set(result["metrics"]) == want
     for name, check in result["checks"].items():
         assert set(check) == {"value", "limit"}, name
@@ -82,6 +85,18 @@ def test_result_line_keys(tiny_root, traced):
     if traced:
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
         assert len(result["breakdown"]["idle_gaps"]) <= 10
+    return result
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_result_line_keys(tiny_root, traced):
+    _check_result_line(tiny_root, "scan512.drag", traced)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_view_result_line_keys(tiny_root, traced):
+    result = _check_result_line(tiny_root, "scan200.view3d", traced)
+    assert set(result["checks"]) == {"view_count_gap", "view_set_gap", "view_alpha_gap"}
 
 
 def _imports(path):
@@ -172,9 +187,52 @@ def _apply_unchanged(monkeypatch):
     monkeypatch.setattr(deconvolution, "deconvolve_cube", lambda data, *a, **k: data.clone())
 
 
+def _stale_view(monkeypatch):
+    """A 3-D view update that returns the view it returned first."""
+    from thz_image_explorer_tpu_torch.web import WebApp
+
+    inner, first = WebApp.voxels, []
+
+    def stale(self, *a, **k):
+        if not first:
+            first.append(inner(self, *a, **k))
+        return first[0]
+
+    monkeypatch.setattr(WebApp, "voxels", stale)
+
+
+def _half_view(monkeypatch):
+    """Half of the traces left out of the view's opacities."""
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    inner = voxel._normalized_opacities
+
+    def half(data, *a, **k):
+        out = inner(data, *a, **k).clone()
+        out[out.shape[0] // 2:] = 0
+        return out
+
+    monkeypatch.setattr(voxel, "_normalized_opacities", half)
+
+
+def _altered_view(monkeypatch):
+    """Each voxel's opacity one step higher where the fetch packs it."""
+    from thz_image_explorer_tpu_torch.ops import voxel
+
+    inner = voxel._pack
+
+    def altered(vals, idx):
+        return inner(torch.clamp(vals + 1.0 / 63, max=1.0), idx)
+
+    monkeypatch.setattr(voxel, "_pack", altered)
+
+
 FAULTS = [("scan512.drag", _stale_step), ("scan512.drag", _half_batch),
           ("scan512.drag", _altered_answer), ("scan200.apply", _altered_answer),
-          ("scan200.apply", _apply_unchanged)]
+          ("scan200.apply", _apply_unchanged), ("scan200.drag", _stale_step),
+          ("scan200.drag", _half_batch), ("scan200.drag", _altered_answer),
+          ("scan200.view3d", _stale_view), ("scan200.view3d", _half_view),
+          ("scan200.view3d", _altered_view)]
 
 
 @pytest.mark.parametrize("workload,fault", FAULTS,
@@ -199,7 +257,8 @@ def test_run_refuses_without_a_card():
 def test_tiny_cells_on_the_card(tiny_root):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    for workload in ("scan200.apply", "scan512.drag", "scan512.apply"):
+    for workload in ("scan200.apply", "scan512.drag", "scan512.apply", "scan200.drag",
+                     "scan200.view3d"):
         result = _run(tiny_root, workload, traced=True, device="cuda")
         assert result["correct"], (workload, result["checks"])
         assert result["device"]["busy_s"] > 0
